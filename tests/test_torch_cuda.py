@@ -1,0 +1,147 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test needs a CUDA device and skips without one.  The file imports no
+JAX, so on a machine without JAX it runs with
+`python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`.
+All comparisons are bit-exact: the kernels and their plain versions do the
+same integer arithmetic.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import bpr as B
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import convert as CV
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import ec as E
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import gather as G
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import hist as H
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import scan as S
+from webgpu_msm_twisted_edwards_tpu_torch.utils.interop import from_numpy_u32
+from webgpu_msm_twisted_edwards_tpu_torch.utils.params import PARAMS
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _build.build_all()
+    return torch.device("cuda")
+
+
+def _field_words(rng, n):
+    """[n, 8] u32 words of random values below p."""
+    vals = [int.from_bytes(rng.bytes(32), "little") % PARAMS.p for _ in range(n)]
+    return np.array([[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)] for v in vals],
+                    dtype=np.uint32)
+
+
+def _coords(rng, n, dev):
+    return from_numpy_u32(np.stack([_field_words(rng, n), _field_words(rng, n)], axis=1), dev)
+
+
+def _point_rows(rng, n, dev):
+    """[n, TW] packed rows with coordinates < p (normalized limbs)."""
+    limbs = rng.integers(0, 1 << 13, size=(n, 4, 20), dtype=np.uint32)
+    limbs[:, :, 19] %= 0x25                                  # value < p
+    packed = limbs[:, :, 0::2] | (limbs[:, :, 1::2] << 16)
+    rows = np.zeros((n, E.TW), dtype=np.uint32)
+    rows[:, :40] = packed.reshape(n, 40)
+    return from_numpy_u32(rows, dev)
+
+
+def _same(a, b):
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def test_convert(dev):
+    coords = _coords(np.random.default_rng(1), 300, dev)
+    assert _same(CV.build_table_doubled(coords), CV.build_table_doubled_plain(coords))
+
+
+def test_hist(dev):
+    rng = np.random.default_rng(2)
+    nb = 2048
+    keys = rng.integers(0, nb + 1, size=(3, 4096)).astype(np.int32)
+    keys[0, :1000] = 7
+    keys[1, :] = nb
+    k = torch.from_numpy(keys).to(dev)
+    assert _same(H.bucket_counts(k, nb), H.bucket_counts_plain(k, nb))
+
+
+def test_gather(dev):
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31, size=(512, 128), dtype=np.int64)
+                             .astype(np.int32)).to(dev)
+    pidx_t = torch.from_numpy(rng.integers(0, 512, size=(64, 256)).astype(np.int32)).to(dev)
+    assert _same(G.row_gather(table, pidx_t), G.row_gather_plain(table, pidx_t))
+
+
+def test_scan(dev):
+    rng = np.random.default_rng(4)
+    table = CV.build_table_doubled_plain(_coords(rng, 64, dev))
+    nf = 256
+    pidx = torch.from_numpy(rng.integers(0, 128, size=nf * S.K)).to(dev)
+    rows = table[pidx].reshape(nf, S.K, S.TWR)
+    keys = np.sort(rng.integers(0, 9, size=(S.K, nf)), axis=0).astype(np.int32)
+    sames = S.keys_to_sames(torch.from_numpy(keys).to(dev))
+    assert _same(S.msm_scan_rm_sames(rows, sames), S.msm_scan_rm_sames_plain(rows, sames))
+
+
+def test_ab_scan_level(dev):
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(0, 2, size=4096).astype(np.int32)).to(dev)
+    b = _point_rows(rng, 4096, dev)
+    assert _same(S.ab_scan_level(a, b, 64), S.ab_scan_level_plain(a, b, 64))
+
+
+def test_masked_add(dev):
+    rng = np.random.default_rng(6)
+    a, b = _point_rows(rng, 1000, dev), _point_rows(rng, 1000, dev)
+    m = torch.from_numpy(rng.integers(0, 2, size=1000).astype(np.int32)).to(dev)
+    assert _same(E.masked_add_rows(a, b, m), E.masked_add_rows_plain(a, b, m))
+
+
+def test_seg_carry_scan_kernels_match_plain(dev):
+    """The recursion over ab_scan_level and masked_add_rows, on the kernels
+    and on the CPU's plain versions."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.integers(0, 2, size=5000).astype(np.int32))
+    b = _point_rows(rng, 5000, "cpu")
+    got = S.seg_carry_scan(a.to(dev), b.to(dev)).cpu()
+    assert _same(got, S.seg_carry_scan(a, b))
+
+
+def test_bpr_stages(dev):
+    rng = np.random.default_rng(8)
+    buckets = _point_rows(rng, 2 * 256, dev)
+    m, g = B.bpr_stage1(buckets)
+    assert _same((m, g), B.bpr_stage1_plain(buckets))
+    assert _same(B.bpr_stage2(m, g, 4), B.bpr_stage2_plain(m, g, 4))
+
+
+@pytest.mark.parametrize("w,cbits", [(20, 13), (16, 16), (32, 8)])
+def test_horner(dev, w, cbits):
+    sums = _point_rows(np.random.default_rng(9), w, dev)
+    assert _same(B.horner_fold(sums, cbits), B.horner_fold_plain(sums, cbits))
+
+
+def test_compute_msm_cuda_matches_cpu(dev):
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
+    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+
+    n = 4096
+    pts = oracle.gen_points(n, seed=5)
+    rng = np.random.default_rng(5)
+    sc = rng.integers(0, 1 << 62, size=(n, 4), dtype=np.uint64)
+    sc[:, 3] &= (1 << 58) - 1
+    coords = pts.view(np.uint32).reshape(n, 2, 8)
+    scalars = sc.view(np.uint32).reshape(n, 8)
+    got = compute_msm(coords, scalars, chunk_size=8)
+    assert got == compute_msm(coords, scalars, chunk_size=8, device="cpu")
+    assert (got["x"], got["y"]) == oracle.msm(pts, sc, c=16)

@@ -1,0 +1,40 @@
+// Masked point add over packed rows: out_i = mask_i ? a_i + b_i : a_i.
+//
+// Replaces webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py::
+// _masked_add_kernel (masked_add_rows).  The MSM uses it for bucket
+// extraction, the carry apply of the carry scan, the per-window reduction
+// after BPR and the combine of point blocks.
+//
+// Bound on the H100: operations (one full add, about 7.6 K 32-bit
+// multiply-adds, per row against 772 bytes read and written).
+// Design: one thread per row; a row whose mask is 0 skips the add (the JAX
+// kernel computes and discards it; the stored row is the same).
+#include <cuda_runtime.h>
+
+#include "ec.cuh"
+
+namespace msm {
+
+__global__ void __launch_bounds__(128)
+masked_add_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                  const int32_t* __restrict__ mask, uint32_t* __restrict__ out, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Pt p = pt_load(a + i * MSM_TW);
+  if (mask[i] != 0) p = full_add(p, pt_load(b + i * MSM_TW));
+  pt_store(out + i * MSM_TW, p);
+}
+
+}  // namespace msm
+
+// a, b, out: [n, 64] u32; mask: [n] i32.
+extern "C" int msm_masked_add_rows(const void* a, const void* b, const void* mask, void* out,
+                                   long long n, void* stream) {
+  if (n > 0) {
+    const int threads = 128;
+    const long long blocks = (n + threads - 1) / threads;
+    msm::masked_add_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (const uint32_t*)b, (const int32_t*)mask, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}

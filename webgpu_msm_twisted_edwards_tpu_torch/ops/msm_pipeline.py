@@ -1,0 +1,227 @@
+"""The MSM device pipeline: window sums, or the folded total, of
+[n, 2, 8] affine point words and [n, 8] scalar words.
+
+Port of the default path of the JAX package's ops/msm_pipeline.py:
+
+    1. table + digits   build_table_doubled (kernel) builds the doubled
+                        table, rows n..2n-1 the negated points;
+                        decompose_scalars_signed (torch) the signed digits.
+    2. per window group bucket sums (window_group_bucket_sums):
+                        a stable sort of (bucket key, signed row) per
+                        window; bucket_counts (kernel); row_gather (kernel)
+                        or plain indexing into sorted order; the fragment
+                        scan msm_scan_rm_sames (kernel); the carry scan
+                        seg_carry_scan (kernels); extraction at bucket ends
+                        through masked_add_rows (kernel).
+    3. bpr (kernels) to window sums, and horner_fold (kernel) to the total.
+
+Every stage matches the JAX package's output bit for bit on the same input.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.params import MsmConfig
+from ..utils.runtime import device_memory_bytes
+from .convert import decompose_scalars_signed
+from .kernels.bpr import bpr, horner_fold
+from .kernels.convert import build_table_doubled
+from .kernels.ec import TW, identity_row, masked_add_rows
+from .kernels.gather import row_gather
+from .kernels.hist import bucket_counts
+from .kernels.scan import K, TWR, keys_to_sames, msm_scan_rm_sames, seg_carry_scan
+
+#: From this many gathered rows per window group the gather runs on the
+#: row-gather kernel, below it on plain indexing.  The JAX package's gate
+#: value, kept so the two paths split where they do there; its
+#: re-derivation on the H100 is queued in ROADMAP.md.
+_DMA_GATHER_MIN_ROWS = 1 << 21
+
+#: Device memory per staged (window, point) entry of one window group that
+#: default_window_group budgets for.  The JAX package's value, kept so the
+#: window groups match; its re-derivation on the H100 is queued in
+#: ROADMAP.md.
+_STAGING_BYTES_PER_ENTRY = 1300
+
+
+def build_full_table(coords: torch.Tensor) -> torch.Tensor:
+    """[n, 2, 8] -> [2n, TWR]: rows 0..n-1 the points, rows n..2n-1 their
+    negations, so a digit's sign rides the gather index (row + n)."""
+    return build_table_doubled(coords)
+
+
+def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor,
+                             nb: int) -> torch.Tensor:
+    """digits_g: [Wg, n] signed digits of one group of windows; table:
+    [2n, TWR] doubled rows.  Returns [Wg * nb, TW] packed bucket sums: bucket
+    key b holds the sum of the points whose digit is +-(b+1), sign applied."""
+    wg, n = digits_g.shape
+    if table.shape[0] != 2 * n:
+        raise ValueError(f"table has {table.shape[0]} rows, expected {2 * n}")
+    if nb % 128:
+        raise ValueError(f"nb={nb}: the pipeline needs c >= 8 (ROADMAP A.8)")
+    dev = digits_g.device
+    d = digits_g
+    keys = torch.where(d == 0, nb, d.abs() - 1).to(torch.int32)      # [Wg, n]
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    idxs = torch.where(d < 0, idx + n, idx)
+    # Stable, as lax.sort: equal keys keep their order, so every bucket sums
+    # its points in the JAX package's order.
+    keys_s, perm = torch.sort(keys, dim=1, stable=True)
+    idxs_s = torch.gather(idxs, 1, perm)
+
+    counts = bucket_counts(keys, nb)                                  # [Wg, nb]
+    ends = torch.cumsum(counts, dim=1) - 1                            # int64
+
+    # Flatten window-major and pad with sentinel entries to a multiple of
+    # 128 fragments (their scan values and carries are never extracted).
+    wofs = torch.arange(wg, dtype=torch.int32, device=dev)[:, None] * (nb + 2)
+    flat_keys = keys_s.reshape(-1)
+    flat_gkeys = (keys_s + wofs).reshape(-1)
+    flat_pidx = idxs_s.reshape(-1)
+    total = wg * n
+    nf = -(-(total // K) // 128) * 128
+    pad_e = nf * K - total
+    if pad_e:
+        def full(v):
+            return torch.full((pad_e,), v, dtype=torch.int32, device=dev)
+        flat_keys = torch.cat([flat_keys, full(nb)])
+        flat_gkeys = torch.cat([flat_gkeys, full((wg - 1) * (nb + 2) + nb)])
+        flat_pidx = torch.cat([flat_pidx, full(0)])
+
+    keys_t = flat_keys.reshape(nf, K).T                               # [K, NF]
+    if total >= _DMA_GATHER_MIN_ROWS:
+        rows = row_gather(table, flat_pidx.reshape(nf, K).T.contiguous())
+    else:
+        rows = table[flat_pidx.to(torch.int64)]
+    t_scan = msm_scan_rm_sames(rows.reshape(nf, K, TWR), keys_to_sames(keys_t))
+    del rows
+
+    # Carries across fragments; global keys keep runs inside their window.
+    gk_frag = flat_gkeys.reshape(nf, K)
+    fk = gk_frag[:, 0]
+    lk = gk_frag[:, -1]
+    fk_next = torch.cat([fk[1:], torch.full((1,), -7, dtype=torch.int32, device=dev)])
+    cont = (lk == fk_next).to(torch.int32)
+    single = (fk == lk).to(torch.int32)
+    ident = identity_row(dev)
+    b = torch.where((cont != 0)[:, None], t_scan[:, -1, TW:], ident[None, :])
+    carries = seg_carry_scan(cont * single, b)                        # [NF, TW]
+
+    # Extraction at bucket ends.
+    ends_c = ends.clamp(0, n - 1)
+    wrow = torch.arange(wg, dtype=torch.int64, device=dev)[:, None]
+    flat_end = (wrow * n + ends_c).reshape(-1)
+    gfrag = (wrow * (n // K) + ends_c // K).reshape(-1)
+    cval = carries[gfrag]                                             # [Wg*nb, TW]
+    fragstart_key = torch.gather(keys_s, 1, (ends_c // K) * K)        # [Wg, nb]
+    bucket_ids = torch.arange(nb, dtype=torch.int32, device=dev)[None]
+    mask_c = ((fragstart_key == bucket_ids) & (counts > 0)).reshape(-1).to(torch.int32)
+    nonzero = (counts > 0).reshape(-1)
+    # Entry e lives in pair row e//2, half e%2.
+    pair_rows = t_scan.reshape(nf * (K // 2), 2 * TW)[flat_end >> 1]
+    odd = (flat_end & 1) == 1
+    tval = torch.where(odd[:, None], pair_rows[:, TW:], pair_rows[:, :TW])
+    buckets = masked_add_rows(tval, cval, mask_c)
+    return torch.where(nonzero[:, None], buckets, ident[None, :])
+
+
+def default_window_group(n: int, num_windows: int, device=None) -> int:
+    """Largest divisor of num_windows whose per-group staging fits 85% of the
+    device's memory next to the table."""
+    table_bytes = 2 * n * TWR * 4
+    budget = int(0.85 * device_memory_bytes(device)) - table_bytes
+    cap = max(1, budget // (n * _STAGING_BYTES_PER_ENTRY))
+    return max(d for d in range(1, num_windows + 1) if num_windows % d == 0 and d <= cap)
+
+
+def _stage_table_digits(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig):
+    table = build_full_table(coords)
+    digits = decompose_scalars_signed(scalars, cfg)                   # [n, W]
+    return table, digits.T                                            # [W, n]
+
+
+def _stage_group(table, digits_t, g: int, nb: int, wg: int) -> torch.Tensor:
+    return window_group_bucket_sums(table, digits_t[g * wg:(g + 1) * wg], nb)
+
+
+def _stage_bpr(group_rows, w: int) -> torch.Tensor:
+    return bpr(torch.cat(group_rows) if len(group_rows) > 1 else group_rows[0], w)
+
+
+def _stage_combine(acc_rows: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """EC-add two [W, TW] packed window-sum arrays row by row."""
+    ones = torch.ones((acc_rows.shape[0],), dtype=torch.int32, device=acc_rows.device)
+    return masked_add_rows(acc_rows, rows, ones)
+
+
+def _stage_fold(rows: torch.Tensor, cbits: int) -> torch.Tensor:
+    return horner_fold(rows, cbits)
+
+
+def msm_window_sums_staged(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig,
+                           window_group: int = 0, fold: bool = False) -> torch.Tensor:
+    """[n, 2, 8], [n, 8] int32 -> [W, TW] packed window sums, or with
+    fold=True the [1, TW] packed projective total.  Stages: table + digits,
+    then one bucket-sum pass per window group, then BPR (and the fold).
+    window_group=0 takes default_window_group."""
+    n = coords.shape[0]
+    if n % K:
+        raise ValueError(f"n={n} must be a multiple of the scan fragment size {K}")
+    w = cfg.num_windows
+    nb = cfg.num_buckets
+    if window_group == 0:
+        window_group = default_window_group(n, w, coords.device)
+    if w % window_group:
+        raise ValueError(f"window_group={window_group} does not divide {w} windows")
+    table, digits_t = _stage_table_digits(coords, scalars, cfg)
+    group_rows = [_stage_group(table, digits_t, g, nb, window_group)
+                  for g in range(w // window_group)]
+    del table
+    rows = _stage_bpr(group_rows, w)
+    return _stage_fold(rows, cfg.chunk_size) if fold else rows
+
+
+def msm_window_sums(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig,
+                    window_group: int = 0) -> torch.Tensor:
+    """[n, 2, 8], [n, 8] int32 -> [W, TW] packed window sums (the staged
+    pipeline without the fold)."""
+    return msm_window_sums_staged(coords, scalars, cfg, window_group=window_group)
+
+
+def default_block_size(n: int, device=None) -> int:
+    """Largest power-of-two point block (>= 4096, <= n) whose doubled table
+    stays under 40% of device memory."""
+    cap_rows = int(0.4 * device_memory_bytes(device)) // (2 * TWR * 4)
+    b = 4096
+    while b * 2 <= cap_rows and b * 2 <= n:
+        b *= 2
+    return b
+
+
+def msm_window_sums_blocked(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig,
+                            block: int = 0, window_group: int = 0,
+                            fold: bool = False) -> torch.Tensor:
+    """As :func:`msm_window_sums_staged`, streaming point blocks when the
+    table would not fit: window sums over disjoint point blocks add, so the
+    result equals the unblocked pipeline's.  block=0 takes
+    default_block_size."""
+    n = coords.shape[0]
+    if block == 0:
+        block = default_block_size(n, coords.device)
+    if block % K:
+        raise ValueError(f"block={block} must be a multiple of {K}")
+    if n <= block:
+        return msm_window_sums_staged(coords, scalars, cfg, window_group=window_group,
+                                      fold=fold)
+    while n % block != 0 and block > K:
+        block //= 2
+    if n % block:
+        raise ValueError(f"n={n} must be a multiple of the block size {block}")
+    acc = None
+    for b0 in range(0, n, block):
+        rows = msm_window_sums_staged(coords[b0:b0 + block], scalars[b0:b0 + block], cfg,
+                                      window_group=window_group)
+        acc = rows if acc is None else _stage_combine(acc, rows)
+    return _stage_fold(acc, cfg.chunk_size) if fold else acc

@@ -1,0 +1,98 @@
+"""Where one compute_msm spends its time on the card.
+
+    python -m webgpu_msm_twisted_edwards_tpu_torch.utils.profiling [--log2n 20]
+
+Runs compute_msm once to warm up, then once under torch.profiler, on the
+inputs chip_smoke.py uses (points from the native oracle's generator,
+scalars from a seeded numpy generator, both resident on the card).  Prints
+one JSON object: the host wall time of the traced run, the device time
+summed by kernel name, the card's busy time (the union of its kernel and
+copy intervals) and its idle share of the wall time.  It needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+SEED_POINTS = 20230923
+SEED_SCALARS = 42
+
+
+def bench_inputs(n: int):
+    """([n, 8] uint64 points, [n, 4] uint64 scalars < 2^250): the inputs of
+    the repository's MSM benchmarks."""
+    from . import oracle
+
+    pts = oracle.gen_points(n, seed=SEED_POINTS)
+    rng = np.random.default_rng(SEED_SCALARS)
+    sc = rng.integers(0, 1 << 62, size=(n, 4), dtype=np.uint64)
+    sc[:, 3] &= (1 << 58) - 1                       # < 2^250 < the subgroup order
+    return pts, sc
+
+
+def device_profile(fn) -> dict:
+    """Run fn() once under torch.profiler; summarize its device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        by_name[ev.name][0] += end - start
+        by_name[ev.name][1] += 1
+        spans.append((start, end))
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    kernels = sorted(({"name": k[:120], "ms": v[0] / 1e3, "count": v[1]}
+                      for k, v in by_name.items()), key=lambda r: -r["ms"])
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1 - busy_us / wall_us if spans else None,
+            "device_events": len(spans), "kernels": kernels}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log2n", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profiling: no CUDA device", file=sys.stderr)
+        return 1
+    from ..models.cuzk import compute_msm
+    from .interop import from_numpy_u32
+
+    n = 1 << args.log2n
+    pts, sc = bench_inputs(n)
+    coords = from_numpy_u32(pts.view(np.uint32).reshape(n, 2, 8), "cuda")
+    scalars = from_numpy_u32(sc.view(np.uint32).reshape(n, 8), "cuda")
+    compute_msm(coords, scalars)
+    out = device_profile(lambda: compute_msm(coords, scalars))
+    out.update(log2n=args.log2n, device=torch.cuda.get_device_name(0))
+    print(json.dumps(out))
+    return 0 if out["device_events"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
