@@ -15,7 +15,15 @@ Phases (any failure raises and exits non-zero):
 4. each of the nine kernels replayed on the inputs of its largest call in the
    2^20 run, held bit for bit against its plain PyTorch version, and timed
    beside that version, the PyTorch library call that computes the same
-   function (where one exists) and its bound.
+   function (where one exists) and its bound;
+5. the fixed-base path on the 2^20 inputs: precompute_msm_base (c=16, W'=16,
+   a merged table of 2^24 rows) timed with its launch counts, then
+   compute_msm_precomputed with its launch counts, one warm and five timed
+   runs, its result checked against the 2^20 compute_msm answer (which
+   phase 3 held to the oracle), and once more forced into two entry blocks;
+6. the four kernels of the fixed-base path replayed as in 4; the whole
+   output of each row-wise one (convert_pair, double_rows, normalize) is
+   held against its plain version in chunks of PLAIN_ROWS rows.
 
 It prints, on lines of their own before the last, the card line from
 nvidia-smi and one JSON object {"kernels": [...]}, and as its last line
@@ -24,6 +32,7 @@ nvidia-smi and one JSON object {"kernels": [...]}, and as its last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -34,30 +43,33 @@ import numpy as np
 import torch
 
 #: Peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s, and the
-#: fp32 rate outside the tensor cores, against which a 32-bit integer
-#: multiply-add counts as one FMA (2 operations).  The data sheet gives no
-#: integer rate for these units; it is not higher than the fp32 FMA rate.
+#: 32-bit integer multiply-add rate.  The data sheet gives only the fp32
+#: rate outside the tensor cores (67e12 operations/s, 128 FMAs of 2
+#: operations per clock per SM); the CUDA C++ Programming Guide's throughput
+#: table gives 64 32-bit integer multiply-adds per clock per SM against
+#: those 128 FMAs for compute capability 9.0, so a quarter of it.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_IMAD_PER_S = 67e12 / 4
 #: 32-bit multiply-adds of one Montgomery product: 20 rounds of
 #: (x_i*y_0, N0*t, 20 x_i*y_j, 20 q_i*p_j).
 MONT = 20 * 42
 MADD, FULL_ADD, DOUBLE = 7 * MONT, 9 * MONT, 8 * MONT
 
 RUNS = 5
+#: Rows of each call of a row-wise kernel's plain version: the kernel's
+#: output over the whole input is held against it chunk by chunk.
+PLAIN_ROWS = 1 << 16
 REPO = os.path.dirname(os.path.abspath(__file__))
-JAX_REPLACES = "webgpu_msm_twisted_edwards_tpu/ops/pallas/"
+JAX_PKG = "webgpu_msm_twisted_edwards_tpu/ops/"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def main_path(n: int, capture: bool) -> dict:
-    """Drive compute_msm at n points; returns its numbers."""
-    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
-    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
-    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+def card_inputs(n: int):
+    """The benchmark inputs at n points: numpy (points, scalars) and the
+    packed [n, 2, 8] and [n, 8] int32 tensors on the card."""
     from webgpu_msm_twisted_edwards_tpu_torch.utils.interop import from_numpy_u32
     from webgpu_msm_twisted_edwards_tpu_torch.utils.profiling import bench_inputs
 
@@ -65,6 +77,16 @@ def main_path(n: int, capture: bool) -> dict:
     coords = from_numpy_u32(pts.view(np.uint32).reshape(n, 2, 8), "cuda")
     scalars = from_numpy_u32(sc.view(np.uint32).reshape(n, 8), "cuda")
     torch.cuda.synchronize()
+    return pts, sc, coords, scalars
+
+
+def main_path(n: int, capture: bool) -> dict:
+    """Drive compute_msm at n points; returns its numbers."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+
+    pts, sc, coords, scalars = card_inputs(n)
 
     _build.captures = {} if capture else None
     _build.reset_launch_counts()
@@ -88,6 +110,84 @@ def main_path(n: int, capture: bool) -> dict:
         raise AssertionError(f"2^{n.bit_length() - 1}: got {res}, oracle {want}")
     return {"n": n, "launches": launches, "first_ms": first_ms, "runs_ms": times,
             "median_ms": statistics.median(times), "oracle": "MATCH", "oracle_s": oracle_s,
+            "captures": captures, "result": res}
+
+
+#: Kernels each run of the fixed-base path must launch.
+PRECOMPUTE_LAUNCHES = {"convert_pair": 1, "double_rows": 15, "normalize": 15}
+FIXED_BASE_MSM_KERNELS = ("hist", "gather", "scan_signed", "ab_scan", "masked_add", "bpr1",
+                          "bpr2")
+
+
+def fixed_base_path(n: int, want: dict) -> dict:
+    """Drive precompute_msm_base and compute_msm_precomputed at n points;
+    `want` is compute_msm's answer on the same inputs.  Returns the numbers
+    and the captured inputs of the four fixed-base kernels."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm_precomputed, precompute_msm_base
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import precompute as PRE
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+
+    _, _, coords, scalars = card_inputs(n)
+    _build.captures = {}
+    _build.reset_launch_counts()
+    t0 = time.time()
+    pre = precompute_msm_base(coords)
+    torch.cuda.synchronize()
+    precompute_s = time.time() - t0
+    pre_launches = dict(_build.launches)
+    if pre_launches != PRECOMPUTE_LAUNCHES:
+        raise AssertionError(f"precompute launches {pre_launches}, expected {PRECOMPUTE_LAUNCHES}")
+    if (pre.cfg.chunk_size, pre.cfg.num_windows, pre.table.shape[0]) != (16, 16, 16 * n):
+        raise AssertionError(f"precompute: c={pre.cfg.chunk_size}, W'={pre.cfg.num_windows}, "
+                             f"table {tuple(pre.table.shape)}")
+
+    _build.reset_launch_counts()
+    t0 = time.time()
+    res = compute_msm_precomputed(pre, scalars)
+    first_ms = (time.time() - t0) * 1e3
+    launches = dict(_build.launches)
+    captures = {k: v for k, v in _build.captures.items()
+                if k in ("convert_pair", "double_rows", "normalize", "scan_signed")}
+    _build.captures = None
+    if res != want:
+        raise AssertionError(f"fixed base: got {res}, compute_msm {want}")
+    missing = [k for k in FIXED_BASE_MSM_KERNELS if launches.get(k, 0) < 1]
+    if missing or launches.get("scan", 0) or launches.get("horner", 0):
+        raise AssertionError(f"fixed-base MSM launches {launches}; missing {missing}")
+
+    times = []
+    compute_msm_precomputed(pre, scalars)
+    for _ in range(RUNS):
+        t0 = time.time()
+        again = compute_msm_precomputed(pre, scalars)
+        times.append((time.time() - t0) * 1e3)
+        if again != res:
+            raise AssertionError("fixed base: runs disagree")
+
+    # Two entry blocks, as a smaller card would stream them: the blocks'
+    # bucket arrays are added on the masked-add kernel (counted by a spy on
+    # that stage).
+    pre2 = dataclasses.replace(pre, nblk=pre.n_entries // 2, blocks=2)
+    accum, accum_calls = PRE._stage_merged_accum, []
+    PRE._stage_merged_accum = lambda acc, part: (accum_calls.append(1), accum(acc, part))[1]
+    _build.reset_launch_counts()
+    try:
+        t0 = time.time()
+        res2 = compute_msm_precomputed(pre2, scalars)
+        two_block_ms = (time.time() - t0) * 1e3
+    finally:
+        PRE._stage_merged_accum = accum
+    launches2 = dict(_build.launches)
+    if res2 != want:
+        raise AssertionError(f"fixed base, two blocks: got {res2}, compute_msm {want}")
+    if len(accum_calls) != 1 or launches2.get("masked_add", 0) <= launches["masked_add"]:
+        raise AssertionError(f"two blocks: {len(accum_calls)} accumulations, launches "
+                             f"{launches2}")
+    del pre, pre2
+    return {"n": n, "precompute_s": precompute_s, "precompute_launches": pre_launches,
+            "launches": launches, "first_ms": first_ms, "runs_ms": times,
+            "median_ms": statistics.median(times), "two_block_ms": two_block_ms,
+            "two_block_launches": launches2, "equals_compute_msm": True,
             "captures": captures}
 
 
@@ -117,14 +217,19 @@ def work(name: str, args, out) -> tuple[int, int]:
     """(bytes moved, 32-bit multiply-adds) that this call's data needs:
     each input read once and each output written once; data-dependent
     loops counted as these inputs run them."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.common import L
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.precompute import EXP, EXP_BITS
+
     outs = out if isinstance(out, tuple) else (out,)
     moved = nbytes(*args) + nbytes(*outs)
-    if name == "convert":
+    if name in ("convert", "convert_pair"):
         return moved, args[0].shape[0] * 4 * MONT
     if name in ("hist", "gather"):
         return moved, 0
-    if name == "scan":
-        return moved, args[0].shape[0] * args[0].shape[1] * MADD
+    if name in ("scan", "scan_signed"):
+        # The scan reads the 3L words of each gathered row that madd uses.
+        entries = args[0].shape[0] * args[0].shape[1]
+        return moved - nbytes(args[0]) + entries * 3 * L * 4, entries * MADD
     if name == "ab_scan":
         return moved, args[0].shape[0] * FULL_ADD
     if name == "masked_add":
@@ -143,15 +248,26 @@ def work(name: str, args, out) -> tuple[int, int]:
         lanes = 1 << max(3, (w - 1).bit_length())
         dbl = sum(min(cbits * (w - 1), cbits * ln) for ln in range(lanes))
         return moved, dbl * DOUBLE + (lanes.bit_length() - 1) * lanes * FULL_ADD
+    if name == "double_rows":
+        return moved, args[0].shape[0] * args[1] * DOUBLE
+    if name == "normalize":
+        # A squaring per bit of p-2, a multiply per set bit, then x and y.
+        return moved, args[0].shape[0] * (EXP_BITS + bin(EXP).count("1") + 2) * MONT
     raise KeyError(name)
 
 
-def kernels_phase(captures: dict, launches: dict) -> list[dict]:
+def kernel_specs() -> tuple[list, list]:
+    """(main path, fixed-base path) kernel specs: name, the wrapper the path
+    runs (timed on the whole captured input), the wrapper held against the
+    plain version and that version, the source, the JAX kernel body it
+    replaces, the library call (or None), and the rows of each call of the
+    plain version (None: one call on the whole input)."""
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import bpr as B
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import convert as CV
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import ec as E
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import gather as G
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import hist as H
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import precompute as PK
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import scan as S
 
     def lib_hist(keys, nb):
@@ -164,56 +280,109 @@ def kernels_phase(captures: dict, launches: dict) -> list[dict]:
         flat = pidx_t.T.reshape(-1).to(torch.int64)
         return lambda: torch.index_select(table, 0, flat)
 
-    pkg = "webgpu_msm_twisted_edwards_tpu_torch/csrc/"
-    specs = [  # name, wrapper, plain, source, JAX kernel body, library call
-        ("convert", CV.build_table_doubled, CV.build_table_doubled_plain, "convert.cu",
-         "convert.py:116", None),
-        ("hist", H.bucket_counts, H.bucket_counts_plain, "hist.cu", "hist.py:36", lib_hist),
-        ("gather", G.row_gather, G.row_gather_plain, "gather.cu", "gather.py:48", lib_gather),
-        ("scan", S.msm_scan_rm_sames, S.msm_scan_rm_sames_plain, "scan.cu", "scan.py:337",
-         None),
-        ("ab_scan", S.ab_scan_level, S.ab_scan_level_plain, "scan.cu", "scan.py:409", None),
-        ("masked_add", E.masked_add_rows, E.masked_add_rows_plain, "ec.cu", "ec.py:130", None),
-        ("bpr1", B.bpr_stage1, B.bpr_stage1_plain, "bpr.cu", "bpr.py:42", None),
-        ("bpr2", B.bpr_stage2, B.bpr_stage2_plain, "bpr.cu", "bpr.py:99", None),
-        ("horner", B.horner_fold, B.horner_fold_plain, "bpr.cu", "bpr.py:189", None),
+    def same(wrapper, plain, src, body, library=None, chunk=None):
+        return wrapper, wrapper, plain, src, body, library, chunk
+
+    main = [
+        ("convert", *same(CV.build_table_doubled, CV.build_table_doubled_plain, "convert.cu",
+                          "pallas/convert.py:116")),
+        ("hist", *same(H.bucket_counts, H.bucket_counts_plain, "hist.cu", "pallas/hist.py:36",
+                       lib_hist)),
+        ("gather", *same(G.row_gather, G.row_gather_plain, "gather.cu", "pallas/gather.py:48",
+                         lib_gather)),
+        ("scan", *same(S.msm_scan_rm_sames, S.msm_scan_rm_sames_plain, "scan.cu",
+                       "pallas/scan.py:337")),
+        ("ab_scan", *same(S.ab_scan_level, S.ab_scan_level_plain, "scan.cu",
+                          "pallas/scan.py:409")),
+        ("masked_add", *same(E.masked_add_rows, E.masked_add_rows_plain, "ec.cu",
+                             "pallas/ec.py:130")),
+        ("bpr1", *same(B.bpr_stage1, B.bpr_stage1_plain, "bpr.cu", "pallas/bpr.py:42")),
+        ("bpr2", *same(B.bpr_stage2, B.bpr_stage2_plain, "bpr.cu", "pallas/bpr.py:99")),
+        ("horner", *same(B.horner_fold, B.horner_fold_plain, "bpr.cu", "pallas/bpr.py:189")),
     ]
+    fixed = [
+        # The path runs build_table (no negation rows); both outputs of the
+        # pair are held against the plain version, build_table's against the
+        # pair's first.
+        ("convert_pair", CV.build_table, CV.build_table_pair, CV.build_table_pair_plain,
+         "convert.cu", "pallas/convert.py:41", None, PLAIN_ROWS),
+        ("scan_signed", *same(S.msm_scan_rm_signed, S.msm_scan_rm_signed_plain, "scan.cu",
+                              "pallas/scan.py:378")),
+        ("double_rows", *same(E.double_rows, E.double_rows_plain, "ec.cu", "pallas/ec.py:278",
+                              chunk=PLAIN_ROWS)),
+        ("normalize", *same(PK.normalize_rows, PK.normalize_rows_plain, "precompute.cu",
+                            "precompute.py:117", chunk=PLAIN_ROWS)),
+    ]
+    return main, fixed
+
+
+def max_err(name: str, got: tuple, ref: tuple) -> int:
+    if len(got) != len(ref) or any(g.shape != r.shape for g, r in zip(got, ref)):
+        raise AssertionError(f"{name}: shapes {[g.shape for g in got]} against its plain "
+                             f"version's {[r.shape for r in ref]}")
+    return max(0 if torch.equal(g, r) else int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
+               for g, r in zip(got, ref))
+
+
+def kernels_phase(specs: list, captures: dict, launches: dict) -> list[dict]:
+    """Replay each kernel on its captured input: its whole output held bit
+    for bit against its plain version (a row-wise kernel's chunk by chunk),
+    then timed beside it, the library call and the bound."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.convert import build_table_doubled_plain
+
+    # Load the torch kernels the plain versions run, so that the first
+    # timed plain call does not pay for it.
+    build_table_doubled_plain(torch.zeros((128, 2, 8), dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    pkg = "webgpu_msm_twisted_edwards_tpu_torch/csrc/"
     rows = []
-    for name, wrapper, plain, src, jax_kernel, library in specs:
+    for name, timed, checked, plain, src, jax_kernel, library, chunk in specs:
         args = captures[name][1]
         shapes = [tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args]
-        out = wrapper(*args)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = plain(*args)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
+        out = checked(*args)
         got = out if isinstance(out, tuple) else (out,)
-        ref = want if isinstance(want, tuple) else (want,)
-        errs = [0 if torch.equal(g, r) else int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
-                for g, r in zip(got, ref)]
-        if any(g.shape != r.shape for g, r in zip(got, ref)) or any(errs):
+        n = args[0].shape[0]
+        step = n if chunk is None else chunk
+        err, plain_ms = 0, 0.0
+        for i in range(0, n, step):
+            sub = args if chunk is None else (args[0][i:i + step], *args[1:])
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain(*sub)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms += start.elapsed_time(end)
+            ref = want if isinstance(want, tuple) else (want,)
+            err = max(err, max_err(name, got if chunk is None
+                                   else tuple(g[i:i + step] for g in got), ref))
+            del want, ref
+        if timed is not checked:
+            # The path's wrapper against the checked wrapper's first output.
+            err = max(err, max_err(name, (timed(*args),), got[:1]))
+        if err:
             raise AssertionError(f"{name}: kernel differs from its plain version "
-                                 f"(max abs err {max(errs)}) on {shapes}")
-        del want, got, ref
-        ms = time_kernel(lambda: wrapper(*args))
+                                 f"(max abs err {err}) on {shapes}")
+        del got, out
+        out = timed(*args)
+        ms = time_kernel(lambda: timed(*args))
         library_ms = time_kernel(library(*args)) if library else None
         moved, imads = work(name, args, out)
         del out
         bound_bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
-        bound_ops_ms = 2 * imads / PEAK_OPS_PER_S * 1e3
+        bound_ops_ms = imads / PEAK_IMAD_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": pkg + src,
-            "replaces": JAX_REPLACES + jax_kernel,
-            "launches": launches.get(name, 0), "max_abs_err": max(errs),
+            "replaces": JAX_PKG + jax_kernel,
+            "launches": launches.get(name, 0), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
             "library_ms": library_ms, "shapes": str(shapes),
+            "plain_calls": -(-n // step),
         })
-        log(f"kernel {name}: match, {ms:.4f} ms (plain {plain_ms:.1f} ms, library "
+        log(f"kernel {name}: match, {ms:.4f} ms (plain {plain_ms:.1f} ms in "
+            f"{rows[-1]['plain_calls']} calls, library "
             f"{library_ms if library_ms is None else round(library_ms, 4)} ms, bound "
             f"{rows[-1]['bound_ms']:.4f} ms by {rows[-1]['bound_by']}) on {shapes}")
         torch.cuda.empty_cache()
@@ -238,6 +407,7 @@ def main() -> int:
     for lib, lines in _build.ptxas_report().items():
         for ln in lines:
             log(f"ptxas {lib}: {ln}")
+    main_specs, fixed_specs = kernel_specs()
 
     e2e = {}
     for logn, capture, must_launch in ((16, False, 8), (20, True, 9)):
@@ -249,18 +419,30 @@ def main() -> int:
             f"oracle {r['oracle']} ({r['oracle_s']:.1f} s), launches {r['launches']}")
         if len(ran) < must_launch:
             raise AssertionError(f"2^{logn}: only {sorted(ran)} of the path's kernels launched")
-    if sorted(e2e["2^20"]["launches"]) != sorted(
-            ["convert", "hist", "gather", "scan", "ab_scan", "masked_add", "bpr1", "bpr2",
-             "horner"]):
+    if sorted(e2e["2^20"]["launches"]) != sorted(s[0] for s in main_specs):
         raise AssertionError(f"2^20 launches: {e2e['2^20']['launches']}")
     if e2e["2^16"]["launches"].get("gather", 0) != 0:
         raise AssertionError("2^16 ran the gather kernel below its gate")
+    kernels = kernels_phase(main_specs, e2e["2^20"].pop("captures"), e2e["2^20"]["launches"])
 
-    kernels = kernels_phase(e2e["2^20"].pop("captures"), e2e["2^20"]["launches"])
+    t_fb = time.time()
+    fb = fixed_base_path(1 << 20, e2e["2^20"]["result"])
+    log(f"precompute_msm_base 2^20: {fb['precompute_s']:.3f} s, launches "
+        f"{fb['precompute_launches']}")
+    log(f"compute_msm_precomputed 2^20: median {fb['median_ms']:.2f} ms of {RUNS} "
+        f"{[round(t, 2) for t in fb['runs_ms']]}, first run {fb['first_ms']:.1f} ms, "
+        f"equal to compute_msm and the oracle, launches {fb['launches']}; two blocks "
+        f"{fb['two_block_ms']:.1f} ms, equal, launches {fb['two_block_launches']}")
+    fb_launches = {**fb["launches"], **fb["precompute_launches"]}
+    kernels += kernels_phase(fixed_specs, fb.pop("captures"), fb_launches)
+    fb["phase_s"] = time.time() - t_fb
+    log(f"fixed-base phase with its kernel replay: {fb['phase_s']:.1f} s")
+
     log(json.dumps({"e2e": {k: {"median_ms": v["median_ms"], "runs_ms": v["runs_ms"],
                                 "first_ms": v["first_ms"], "launches": v["launches"],
                                 "oracle": v["oracle"]} for k, v in e2e.items()},
-                    "build_s": build_s, "total_s": time.time() - t_start}))
+                    "fixed_base_2^20": fb, "build_s": build_s,
+                    "total_s": time.time() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,6 +7,8 @@ All comparisons are bit-exact: the kernels and their plain versions do the
 same integer arithmetic.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import convert as CV
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import ec as E
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import gather as G
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import hist as H
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import precompute as PK
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import scan as S
 from webgpu_msm_twisted_edwards_tpu_torch.utils.interop import from_numpy_u32
 from webgpu_msm_twisted_edwards_tpu_torch.utils.params import PARAMS
@@ -144,4 +147,80 @@ def test_compute_msm_cuda_matches_cpu(dev):
     scalars = sc.view(np.uint32).reshape(n, 8)
     got = compute_msm(coords, scalars, chunk_size=8)
     assert got == compute_msm(coords, scalars, chunk_size=8, device="cpu")
+    assert (got["x"], got["y"]) == oracle.msm(pts, sc, c=16)
+
+
+def test_convert_pair(dev):
+    coords = _coords(np.random.default_rng(10), 300, dev)
+    pair = CV.build_table_pair(coords)
+    assert _same(pair, CV.build_table_pair_plain(coords))
+    assert _same(CV.build_table(coords), pair[0])
+
+
+def test_double_rows(dev):
+    rows = _point_rows(np.random.default_rng(11), 1000, dev)
+    for times in (1, 16):
+        assert _same(E.double_rows(rows, times), E.double_rows_plain(rows, times))
+
+
+def test_normalize_rows(dev):
+    rows = _point_rows(np.random.default_rng(12), 300, dev)
+    rows[7] = 0                                              # z = 0 inverts to 0
+    assert _same(PK.normalize_rows(rows), PK.normalize_rows_plain(rows))
+
+
+def test_scan_signed(dev):
+    rng = np.random.default_rng(13)
+    table = CV.build_table_pair_plain(_coords(rng, 64, dev))[0]
+    nf = 256
+    pidx = torch.from_numpy(rng.integers(0, 64, size=nf * S.K)).to(dev)
+    rows = table[pidx].reshape(nf, S.K, S.TWR)
+    keys = np.sort(rng.integers(0, 9, size=(S.K, nf)), axis=0).astype(np.int32)
+    sign = torch.from_numpy(rng.integers(0, 2, size=(S.K, nf)).astype(np.int32)).to(dev)
+    bits = S.keys_to_sames(torch.from_numpy(keys).to(dev)) | (sign << 1)
+    assert _same(S.msm_scan_rm_signed(rows, bits), S.msm_scan_rm_signed_plain(rows, bits))
+
+
+def test_fixed_base_block_clamps_rows_past_the_table(dev):
+    """A block of 2^21 entries (the gather kernel's gate) over a table of
+    4096 rows: entries past the table read its last row, so the buckets equal
+    those over the table padded with copies of that row."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
+
+    rng = np.random.default_rng(14)
+    table = CV.build_table(_coords(rng, 4096, dev))
+    nblk, nb = 1 << 21, 128
+    digits = torch.zeros((1, nblk), dtype=torch.int32)
+    digits[0, :4096] = torch.from_numpy(rng.integers(-128, 128, size=4096).astype(np.int32))
+    digits = digits.to(dev)
+    got = MP.window_group_bucket_sums(table, digits, nb, table_base=0)
+    padded = torch.cat([table, table[-1:].expand(nblk - 4096, -1)])
+    assert _same(got, MP.window_group_bucket_sums(padded, digits, nb, table_base=0))
+
+
+def test_compute_msm_precomputed_cuda_matches_cpu(dev):
+    """The merged table built on the card equals the CPU's (n = 256); one
+    MSM at n = 4096, c = 8 over the card's base equals the same MSM over that
+    base on the CPU, and the oracle."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm_precomputed, precompute_msm_base
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import precompute as PRE
+    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+    from webgpu_msm_twisted_edwards_tpu_torch.utils.params import MsmConfig
+
+    cfg = MsmConfig(chunk_size=8, scalar_bits=253)
+    small = from_numpy_u32(oracle.gen_points(256, seed=6).view(np.uint32).reshape(256, 2, 8))
+    assert _same(PRE.precompute_fixed_base(small.to(dev), cfg).table.cpu(),
+                 PRE.precompute_fixed_base(small, cfg).table)
+
+    n = 4096
+    pts = oracle.gen_points(n, seed=5)
+    rng = np.random.default_rng(5)
+    sc = rng.integers(0, 1 << 62, size=(n, 4), dtype=np.uint64)
+    sc[:, 3] &= (1 << 58) - 1
+    coords = pts.view(np.uint32).reshape(n, 2, 8)
+    scalars = sc.view(np.uint32).reshape(n, 8)
+    pre = precompute_msm_base(coords, chunk_size=8)
+    assert pre.table.is_cuda and pre.cfg.num_windows == 32
+    got = compute_msm_precomputed(pre, scalars)
+    assert got == compute_msm_precomputed(dataclasses.replace(pre, table=pre.table.cpu()), scalars)
     assert (got["x"], got["y"]) == oracle.msm(pts, sc, c=16)

@@ -1,5 +1,6 @@
-// Masked point add over packed rows: out_i = mask_i ? a_i + b_i : a_i.
+// Point operations over packed rows: the masked add and repeated doubling.
 //
+// Masked add, out_i = mask_i ? a_i + b_i : a_i.
 // Replaces webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py::
 // _masked_add_kernel (masked_add_rows).  The MSM uses it for bucket
 // extraction, the carry apply of the carry scan, the per-window reduction
@@ -25,6 +26,27 @@ masked_add_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b
   pt_store(out + i * MSM_TW, p);
 }
 
+// Replaces webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py::
+// _double_rows_kernel (double_rows): out_i = 2^times * in_i, the doubling
+// chain of the fixed-base precompute (ops/precompute.py), c doublings per
+// window over every point.
+//
+// Bound on the H100: operations (times doublings, 8 products or about
+// 6.7 K multiply-adds each, per row against 512 bytes read and written).
+// Design: one thread per row, the point in registers across the `times`
+// dependent doublings; the stored row has its 24 padding words zero, as
+// the JAX kernel writes them.
+__global__ void __launch_bounds__(128)
+double_rows_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, long long n,
+                   int times) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Pt p = pt_load(in + i * MSM_TW);
+#pragma unroll 1
+  for (int k = 0; k < times; ++k) p = pt_double(p);
+  pt_store(out + i * MSM_TW, p);
+}
+
 }  // namespace msm
 
 // a, b, out: [n, 64] u32; mask: [n] i32.
@@ -35,6 +57,18 @@ extern "C" int msm_masked_add_rows(const void* a, const void* b, const void* mas
     const long long blocks = (n + threads - 1) / threads;
     msm::masked_add_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (const int32_t*)mask, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// in, out: [n, 64] u32.
+extern "C" int msm_double_rows(const void* in, void* out, long long n, long long times,
+                               void* stream) {
+  if (n > 0) {
+    const int threads = 128;
+    const long long blocks = (n + threads - 1) / threads;
+    msm::double_rows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)in, (uint32_t*)out, n, (int)times);
   }
   return (int)cudaGetLastError();
 }

@@ -79,7 +79,8 @@ __device__ __forceinline__ void carry_sweep(Fe& s) {
   }
 }
 
-// common.py::cond_sub_p — a >= p ? a - p : a, for normalized a < 2p.
+// a >= p ? a - p : a, for normalized a < 2p (the JAX package's
+// ops/pallas/common.py::cond_sub_p).
 __device__ __forceinline__ void cond_sub_p(Fe& a) {
   bool ge = true;
   uint32_t borrow = 0;
@@ -96,10 +97,12 @@ __device__ __forceinline__ void cond_sub_p(Fe& a) {
   for (int i = 0; i < MSM_L; ++i) a.v[i] = ge ? d.v[i] : a.v[i];
 }
 
-// common.py::mont_mul — x*y*R^-1, carry-free interleaved form: with 13-bit
-// limbs the accumulator absorbs two < 2^26 products per limb in each of the
-// 20 iterations without overflowing 32 bits.  reduce=false is the lazy
-// product of mont_many / mont_mul(reduce=False): no final subtraction.
+// x*y*R^-1, carry-free interleaved form (the JAX package's
+// ops/pallas/common.py::mont_mul): with 13-bit limbs the accumulator absorbs
+// two < 2^26 products per limb in each of the 20 iterations without
+// overflowing 32 bits.  reduce=false is the lazy product of mont_many /
+// mont_mul(reduce=False): no final subtraction.  common.py::mont_mul gives
+// the same limbs with 26-bit quotient digits.
 __device__ __forceinline__ Fe mont_mul(const Fe& x, const Fe& y, bool reduce) {
   Fe s = fe_zero();
 #pragma unroll

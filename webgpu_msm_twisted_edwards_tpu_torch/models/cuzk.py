@@ -1,10 +1,12 @@
-"""The MSM entry point: compute_msm(points, scalars) -> {x, y}.
+"""The MSM entry points: compute_msm(points, scalars) -> {x, y}, and the
+fixed-base trio precompute_msm_base / compute_msm_precomputed /
+compute_msm_batch_precomputed.
 
-Port of the Pallas path of the JAX package's models/cuzk.py::compute_msm:
-inputs are packed into u32 words, scalars reduced below the subgroup order,
-the point count padded to a multiple of 4096 with zero scalars, and the
-pipeline (ops/msm_pipeline.py) returns one packed projective point that the
-host decodes.
+Port of the Pallas path of the JAX package's models/cuzk.py: inputs are
+packed into u32 words, scalars reduced below the subgroup order, the point
+count padded to a multiple of 4096 (zero scalars, copies of point 0), and
+the pipeline (ops/msm_pipeline.py, or ops/precompute.py over a precomputed
+base) returns one packed projective point that the host decodes.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..cpu.curve import ExtPoint
 from ..ops import msm_pipeline as MP
+from ..ops import precompute as PRE
 from ..ops.kernels import _build
 from ..ops.kernels.common import LP, W as WBITS, u32
 from ..utils import limbs as L
@@ -42,6 +45,27 @@ def _as_u32_tensor(arr, device) -> torch.Tensor | None:
     return None
 
 
+def _pack_points(points, device: torch.device) -> torch.Tensor:
+    coords = _as_u32_tensor(points, device)
+    if coords is None:
+        pts = [(p["x"], p["y"]) if isinstance(p, dict) else p for p in points]
+        coords = from_numpy_u32(np.stack(
+            [L.ints_to_u32_words([p[0] for p in pts]),
+             L.ints_to_u32_words([p[1] for p in pts])], axis=1).reshape(len(pts), 2, 8), device)
+    if coords.shape[1:] != (2, 8):
+        raise ValueError(f"points must be [n, 2, 8] words, got {tuple(coords.shape)}")
+    return coords
+
+
+def _pack_scalars(scalars, device: torch.device) -> torch.Tensor:
+    sc = _as_u32_tensor(scalars, device)
+    if sc is None:
+        sc = from_numpy_u32(L.ints_to_u32_words(list(scalars)), device)
+    if sc.dim() != 2 or sc.shape[1] != 8:
+        raise ValueError(f"scalars must be [n, 8] words, got {tuple(sc.shape)}")
+    return reduce_scalars_mod_order(sc)
+
+
 def prepare_inputs(points, scalars, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Pack affine points into [n, 2, 8] and scalars into [n, 8] int32
     tensors of LE u32 words on `device`, scalars reduced mod the subgroup
@@ -49,19 +73,10 @@ def prepare_inputs(points, scalars, device=None) -> tuple[torch.Tensor, torch.Te
     [n, 2, 8] array; scalars ints or a packed [n, 8] array (numpy uint32 or
     an int32 tensor, which may already lie on the device)."""
     device = resolve_device(device)
-    coords = _as_u32_tensor(points, device)
-    if coords is None:
-        pts = [(p["x"], p["y"]) if isinstance(p, dict) else p for p in points]
-        coords = from_numpy_u32(np.stack(
-            [L.ints_to_u32_words([p[0] for p in pts]),
-             L.ints_to_u32_words([p[1] for p in pts])], axis=1).reshape(len(pts), 2, 8), device)
-    sc = _as_u32_tensor(scalars, device)
-    if sc is None:
-        sc = from_numpy_u32(L.ints_to_u32_words(list(scalars)), device)
-    if coords.shape[1:] != (2, 8) or sc.shape != (coords.shape[0], 8):
-        raise ValueError(f"points must be [n, 2, 8] and scalars [n, 8] words, got "
-                         f"{tuple(coords.shape)} and {tuple(sc.shape)}")
-    return coords, reduce_scalars_mod_order(sc)
+    coords, sc = _pack_points(points, device), _pack_scalars(scalars, device)
+    if sc.shape[0] != coords.shape[0]:
+        raise ValueError(f"{coords.shape[0]} points but {sc.shape[0]} scalars")
+    return coords, sc
 
 
 def reduce_scalars_mod_order(sc: torch.Tensor) -> torch.Tensor:
@@ -146,8 +161,57 @@ def compute_msm(
     if target != n:
         coords = _pad_points(coords, target - n)
         sc = _pad_zero_scalars(sc, target - n)
-    rows = MP.msm_window_sums_blocked(coords, sc, cfg, fold=True)
-    x, y = packed_rows_to_extpoints(to_numpy_u32(rows))[0].to_affine()
+    result = _affine_result(MP.msm_window_sums_blocked(coords, sc, cfg, fold=True))
     if log_result:
-        print({"x": x, "y": y})
+        print(result)
+    return result
+
+
+def _affine_result(rows: torch.Tensor) -> dict[str, int]:
+    """[1, TW] packed projective total -> the affine {x, y}."""
+    x, y = packed_rows_to_extpoints(to_numpy_u32(rows))[0].to_affine()
     return {"x": x, "y": y}
+
+
+def precompute_msm_base(points, chunk_size: int | None = None, device=None) -> PRE.PrecomputedBase:
+    """The one-time fixed-base (SRS) precompute for
+    :func:`compute_msm_precomputed`: the merged window-shifted table
+    Q[j*n + i] = 2^(c*j) * P_i on the device (ops/precompute.py).  Points
+    are padded to a multiple of 4096; c is 16 over 253 bits unless
+    `chunk_size` is given (c >= 8).  Runs on the CUDA card unless
+    `device="cpu"` is given."""
+    dev = resolve_device(device)
+    coords = _pack_points(points, dev)
+    n = coords.shape[0]
+    target = max(4096, -(-n // 4096) * 4096)
+    if target != n:
+        coords = _pad_points(coords, target - n)
+    cfg = (PRE.fixed_base_config(target) if chunk_size is None
+           else MsmConfig(chunk_size=chunk_size, scalar_bits=253))
+    return PRE.precompute_fixed_base(coords, cfg)
+
+
+def compute_msm_precomputed(pre: PRE.PrecomputedBase, scalars) -> dict[str, int]:
+    """sum_i k_i * P_i over a precomputed base (see
+    :func:`precompute_msm_base`), on the base's device: the affine {x, y},
+    equal to compute_msm(points, scalars)."""
+    return compute_msm_batch_precomputed(pre, [scalars])[0]
+
+
+def compute_msm_batch_precomputed(pre: PRE.PrecomputedBase, scalars_list) -> list[dict[str, int]]:
+    """One MSM per scalar vector over a precomputed base; the totals are
+    read back after the last MSM is queued."""
+    rows_list = [_fixed_base_rows(pre, sc) for sc in scalars_list]
+    return [_affine_result(rows) for rows in rows_list]
+
+
+def _fixed_base_rows(pre: PRE.PrecomputedBase, scalars) -> torch.Tensor:
+    """Pack the scalars on the base's device, reduce them mod the subgroup
+    order, pad them with zeros to the base's point count and run one MSM:
+    [1, TW] packed projective total."""
+    sc = _pack_scalars(scalars, pre.table.device)
+    if sc.shape[0] > pre.n:
+        raise ValueError(f"{sc.shape[0]} scalars for a base of {pre.n} points")
+    if sc.shape[0] != pre.n:
+        sc = _pad_zero_scalars(sc, pre.n - sc.shape[0])
+    return PRE.fixed_base_total_rows(pre, sc)

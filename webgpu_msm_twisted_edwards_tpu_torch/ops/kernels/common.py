@@ -119,53 +119,69 @@ def carry_sweep(s: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-2)
 
 
-def geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a >= b over normalized limbs: [..., B] bool."""
-    ge = torch.ones_like(a[..., 0, :], dtype=torch.bool)
-    for i in range(L):
-        ai, bi = a[..., i, :], b[..., i, :]
-        ge = (ai > bi) | ((ai == bi) & ge)
-    return ge
-
-
-def sub_limbs(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(a - b) limb-wise with borrow propagation: (diff, borrow)."""
-    borrow = torch.zeros_like(a[..., 0, :])
-    out = []
-    for i in range(L):
-        d = (a[..., i, :] + (1 << W) - b[..., i, :] - borrow) & M32
-        borrow = (1 - (d >> W)) & M32
-        out.append(d & MASK)
-    return torch.stack(out, dim=-2), borrow
-
-
-def cond_sub_p(a: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
-    """a >= p ? a - p : a (a < 2p)."""
-    pb = pv.expand_as(a)
-    diff, _ = sub_limbs(a, pb)
-    return torch.where(geq(a, pb).unsqueeze(-2), diff, a)
-
-
 # ---------------------------------------------------------------------------
 # Montgomery products and lazy additions.
 
 
+#: Digits of the plain Montgomery product: two limbs, 26 bits, so that a
+#: digit product (< 2^54) and a column of ten of them stay inside int64.
+_D = 2 * W
+_DMASK = (1 << _D) - 1
+#: -p^-1 mod 2^26.
+_N0D = (-pow(PARAMS.p, -1, 1 << _D)) % (1 << _D)
+
+
+def _digits(a: torch.Tensor) -> torch.Tensor:
+    """[..., L, B] limbs -> [..., LP, B] 26-bit digits."""
+    return a[..., 0::2, :] | (a[..., 1::2, :] << W)
+
+
+def _columns(xd: torch.Tensor, yd: torch.Tensor) -> torch.Tensor:
+    """[..., LP, B] digits of x and y -> [..., 2*LP, B] column sums of x*y:
+    column m = sum over i + j = m of x_i*y_j.  Row i of the digit products
+    is shifted right by i (padded to width 2*LP+1 and read back at width
+    2*LP), then the rows are summed."""
+    prod = xd.unsqueeze(-2) * yd.unsqueeze(-3)                   # [..., LP, LP, B]
+    lead, b = prod.shape[:-3], prod.shape[-1]
+    prod = torch.cat([prod, prod.new_zeros(*lead, LP, LP + 1, b)], dim=-2)
+    prod = prod.reshape(*lead, LP * (2 * LP + 1), b)[..., :2 * LP * LP, :]
+    return prod.reshape(*lead, LP, 2 * LP, b).sum(dim=-3)
+
+
 def mont_mul(x: torch.Tensor, y: torch.Tensor, pv: torch.Tensor, reduce: bool = True) -> torch.Tensor:
-    """x*y*R^-1, carry-free interleaved form; reduce=False skips the final
-    conditional subtraction (the lazy product, < p + x*y/R)."""
-    s = torch.zeros_like(x)
-    zrow = torch.zeros_like(x[..., 0:1, :])
-    for i in range(L):
-        xi = x[..., i:i + 1, :]
-        t = s[..., 0:1, :] + xi * y[..., 0:1, :]
-        qi = (N0 * (t & MASK)) & MASK
-        u = (s + xi * y + qi * pv) & M32
-        c = u[..., 0:1, :] >> W
-        s = torch.cat([(u[..., 1:2, :] + c) & M32, u[..., 2:, :], zrow], dim=-2)
-    s = carry_sweep(s)
-    if not reduce:
-        return s
-    return cond_sub_p(s, pv)
+    """x*y*R^-1 over normalized limbs (each < 2^13); reduce=False skips the
+    final conditional subtraction (the lazy product, < p + x*y/R).
+
+    The kernels (csrc/field.cuh) run the carry-free interleaved form, one
+    13-bit digit of the quotient at a time.  This plain version takes 26-bit
+    digits, a tenth of the sequential steps: Montgomery's quotient
+    Q = -x*y*p^-1 mod R is the same for any digit size, so both give the
+    value (x*y + Q*p)/R mod 2^260 (the kernels' accumulators never wrap on
+    such limbs, and they drop the carry out of limb 19), and the same limbs
+    after normalization and the conditional subtraction."""
+    pd = _digits(pv)                                             # [LP, 1]
+    acc = _columns(_digits(x), _digits(y))
+    carry = 0
+    for m in range(LP):
+        t = acc[..., m, :] + carry
+        q = ((t & _DMASK) * _N0D) & _DMASK
+        carry = (t + q * pd[0]) >> _D                            # low digit cancels
+        acc[..., m + 1:m + LP, :] += q.unsqueeze(-2) * pd[1:]
+    out = []
+    for m in range(LP):
+        v = acc[..., LP + m, :] + carry
+        out.append(v & _DMASK)
+        carry = v >> _D
+    d = torch.stack(out, dim=-2)
+    if reduce:
+        borrow = 0
+        diff = []
+        for m in range(LP):
+            v = d[..., m, :] - pd[m] - borrow
+            borrow = (v < 0).to(torch.int64)
+            diff.append(v & _DMASK)
+        d = torch.where((borrow == 0).unsqueeze(-2), torch.stack(diff, dim=-2), d)
+    return torch.stack([d & MASK, d >> W], dim=-2).reshape(torch.broadcast_shapes(x.shape, y.shape))
 
 
 def mont_many(pairs, pv: torch.Tensor) -> list[torch.Tensor]:

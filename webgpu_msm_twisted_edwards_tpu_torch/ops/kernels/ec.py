@@ -1,5 +1,5 @@
-"""Extended twisted Edwards point arithmetic on limb tensors, and the masked
-point add over packed rows.
+"""Extended twisted Edwards point arithmetic on limb tensors, and the point
+kernels over packed rows: the masked add and repeated doubling.
 
 Plain counterparts of webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py and of
 csrc/ec.cuh: the rotated a = -1 hwcd formulas, with the same lazy products
@@ -159,4 +159,28 @@ def masked_add_rows(a_rows: torch.Tensor, b_rows: torch.Tensor,
     mask = _build.check(mask.to(torch.int32), torch.int32, (n,), "mask")
     out = torch.empty_like(a_rows)
     _build.launch("masked_add", "ec", "msm_masked_add_rows", a_rows, b_rows, mask, out, n)
+    return out
+
+
+def double_rows_plain(rows: torch.Tensor, times: int) -> torch.Tensor:
+    """Plain version of :func:`double_rows`."""
+    c = load_consts(rows.device)
+    p = rows_to_pt(rows)
+    for _ in range(times):
+        p = double(p, c)
+    return pt_to_rows(p)
+
+
+def double_rows(rows: torch.Tensor, times: int) -> torch.Tensor:
+    """Row i of the result is 2^times * row i (dbl-2008-hwcd, `times`
+    doublings), over [N, TW] int32 packed rows; padding words come out zero.
+    Launches csrc/ec.cu on CUDA tensors; CPU tensors take the plain
+    version."""
+    _build.capture("double_rows", rows, times)
+    if not _build.on_cuda(rows):
+        return double_rows_plain(rows, times)
+    n = rows.shape[0]
+    rows = _build.check(rows, torch.int32, (n, TW), "rows")
+    out = torch.empty_like(rows)
+    _build.launch("double_rows", "ec", "msm_double_rows", rows, out, n, times)
     return out

@@ -5,8 +5,12 @@ scanned on its own (`msm_scan_rm_sames`, one mixed add per entry), and a
 hierarchical carry scan over fragments (`seg_carry_scan`) stitches buckets
 that span fragments.
 
+The fixed-base path scans rows of the single (non-negated) table with
+`msm_scan_rm_signed`, which applies each entry's digit sign itself.
+
 Kernels: csrc/scan.cu, replacing the JAX package's
-ops/pallas/scan.py::_msm_scan_rm_sames_kernel and ::_ab_scan_kernel.
+ops/pallas/scan.py::_msm_scan_rm_sames_kernel, ::_msm_scan_rm_signed_kernel
+and ::_ab_scan_kernel.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .common import L, load_consts, u32
+from .common import L, fr_neg_lazy, load_consts, u32
 from .convert import TWR
 from .ec import TW, full_add, madd, masked_add_rows, pt_identity, pt_select, pt_to_rows, rows_to_pt
 
@@ -30,8 +34,7 @@ def keys_to_sames(keys_t: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(eq[:1]), eq])
 
 
-def msm_scan_rm_sames_plain(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`msm_scan_rm_sames`."""
+def _scan_rm_plain(rows: torch.Tensor, bits_t: torch.Tensor, signed: bool) -> torch.Tensor:
     nf = rows.shape[0]
     c = load_consts(rows.device)
     ident = pt_identity(nf, c)
@@ -39,10 +42,27 @@ def msm_scan_rm_sames_plain(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.
     steps = []
     for j in range(K):
         slab = u32(rows[:, j, 0:3 * L]).T                       # [3L, NF]
-        acc = madd(pt_select(sames_t[j] != 0, acc, ident),
-                   slab[0:L], slab[L:2 * L], slab[2 * L:3 * L], c)
+        d2, s2, td2 = slab[0:L], slab[L:2 * L], slab[2 * L:3 * L]
+        if signed:
+            neg = (bits_t[j] & 2) != 0
+            d2, s2 = torch.where(neg, s2, d2), torch.where(neg, d2, s2)
+            td2 = torch.where(neg, fr_neg_lazy(td2, c), td2)
+            same = (bits_t[j] & 1) != 0
+        else:
+            same = bits_t[j] != 0
+        acc = madd(pt_select(same, acc, ident), d2, s2, td2, c)
         steps.append(pt_to_rows(acc))
     return torch.stack(steps, dim=1).reshape(nf, K // 2, 2 * TW)
+
+
+def msm_scan_rm_sames_plain(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan_rm_sames`."""
+    return _scan_rm_plain(rows, sames_t, signed=False)
+
+
+def msm_scan_rm_signed_plain(rows: torch.Tensor, bits_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan_rm_signed`."""
+    return _scan_rm_plain(rows, bits_t, signed=True)
 
 
 def msm_scan_rm_sames(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
@@ -60,6 +80,23 @@ def msm_scan_rm_sames(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor
     sames_t = _build.check(sames_t, torch.int32, (K, nf), "sames_t")
     out = torch.empty((nf, K // 2, 2 * TW), dtype=torch.int32, device=rows.device)
     _build.launch("scan", "scan", "msm_scan_rm_sames", rows, sames_t, out, nf)
+    return out
+
+
+def msm_scan_rm_signed(rows: torch.Tensor, bits_t: torch.Tensor) -> torch.Tensor:
+    """As :func:`msm_scan_rm_sames` over rows of the single (non-negated)
+    table: bits_t [K, NF] int32 holds the same-as-previous bit in bit 0 and
+    the digit's sign in bit 1; a negative entry adds the negated point (y-x
+    and y+x swapped, 2*d*t negated).  Launches csrc/scan.cu on CUDA tensors;
+    CPU tensors take the plain version."""
+    _build.capture("scan_signed", rows, bits_t)
+    if not _build.on_cuda(rows, bits_t):
+        return msm_scan_rm_signed_plain(rows, bits_t)
+    nf = rows.shape[0]
+    rows = _build.check(rows, torch.int32, (nf, K, TWR), "rows")
+    bits_t = _build.check(bits_t, torch.int32, (K, nf), "bits_t")
+    out = torch.empty((nf, K // 2, 2 * TW), dtype=torch.int32, device=rows.device)
+    _build.launch("scan_signed", "scan", "msm_scan_rm_signed", rows, bits_t, out, nf)
     return out
 
 

@@ -15,6 +15,11 @@ Port of the default path of the JAX package's ops/msm_pipeline.py:
                         through masked_add_rows (kernel).
     3. bpr (kernels) to window sums, and horner_fold (kernel) to the total.
 
+window_group_bucket_sums also serves the fixed-base path (ops/precompute.py):
+given table_base, the digits are one block of a merged window-major single
+table (no negations), the digit sign rides bit 30 of the sorted payload, and
+msm_scan_rm_signed (kernel) applies it.
+
 Every stage matches the JAX package's output bit for bit on the same input.
 """
 
@@ -30,7 +35,14 @@ from .kernels.convert import build_table_doubled
 from .kernels.ec import TW, identity_row, masked_add_rows
 from .kernels.gather import row_gather
 from .kernels.hist import bucket_counts
-from .kernels.scan import K, TWR, keys_to_sames, msm_scan_rm_sames, seg_carry_scan
+from .kernels.scan import (
+    K,
+    TWR,
+    keys_to_sames,
+    msm_scan_rm_sames,
+    msm_scan_rm_signed,
+    seg_carry_scan,
+)
 
 #: From this many gathered rows per window group the gather runs on the
 #: row-gather kernel, below it on plain indexing.  The JAX package's gate
@@ -51,13 +63,21 @@ def build_full_table(coords: torch.Tensor) -> torch.Tensor:
     return build_table_doubled(coords)
 
 
-def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor,
-                             nb: int) -> torch.Tensor:
+def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor, nb: int,
+                             table_base: int | None = None) -> torch.Tensor:
     """digits_g: [Wg, n] signed digits of one group of windows; table:
-    [2n, TWR] doubled rows.  Returns [Wg * nb, TW] packed bucket sums: bucket
-    key b holds the sum of the points whose digit is +-(b+1), sign applied."""
+    [2n, TWR] doubled rows (negations in rows n..2n-1).  Returns
+    [Wg * nb, TW] packed bucket sums: bucket key b holds the sum of the
+    points whose digit is +-(b+1), sign applied.
+
+    table_base selects the fixed-base block mode: the table is a single
+    table (no negations; the scan applies the digit signs) of any size and
+    entry i reads row table_base + i.  Entries padded past the table's end
+    (zero digits, so the sentinel bucket) read its last row, as the JAX
+    package's clamping gather does, and are never extracted."""
     wg, n = digits_g.shape
-    if table.shape[0] != 2 * n:
+    single = table_base is not None
+    if not single and table.shape[0] != 2 * n:
         raise ValueError(f"table has {table.shape[0]} rows, expected {2 * n}")
     if nb % 128:
         raise ValueError(f"nb={nb}: the pipeline needs c >= 8 (ROADMAP A.8)")
@@ -65,7 +85,12 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor,
     d = digits_g
     keys = torch.where(d == 0, nb, d.abs() - 1).to(torch.int32)      # [Wg, n]
     idx = torch.arange(n, dtype=torch.int32, device=dev)
-    idxs = torch.where(d < 0, idx + n, idx)
+    if single:
+        idx = idx + table_base
+    # Doubled table: the sign selects the negated half (row idx + n).
+    # Single table: the sign rides payload bit 30 for the scan to apply.
+    sbit = (1 << 30) if single else n
+    idxs = torch.where(d < 0, idx + sbit, idx)
     # Stable, as lax.sort: equal keys keep their order, so every bucket sums
     # its points in the JAX package's order.
     keys_s, perm = torch.sort(keys, dim=1, stable=True)
@@ -91,11 +116,19 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor,
         flat_pidx = torch.cat([flat_pidx, full(0)])
 
     keys_t = flat_keys.reshape(nf, K).T                               # [K, NF]
+    if single:
+        flat_neg = flat_pidx >> 30
+        flat_pidx = (flat_pidx & ((1 << 30) - 1)).clamp(max=table.shape[0] - 1)
     if total >= _DMA_GATHER_MIN_ROWS:
         rows = row_gather(table, flat_pidx.reshape(nf, K).T.contiguous())
     else:
         rows = table[flat_pidx.to(torch.int64)]
-    t_scan = msm_scan_rm_sames(rows.reshape(nf, K, TWR), keys_to_sames(keys_t))
+    rows = rows.reshape(nf, K, TWR)
+    if single:
+        bits_t = keys_to_sames(keys_t) | (flat_neg.reshape(nf, K).T << 1)
+        t_scan = msm_scan_rm_signed(rows, bits_t)
+    else:
+        t_scan = msm_scan_rm_sames(rows, keys_to_sames(keys_t))
     del rows
 
     # Carries across fragments; global keys keep runs inside their window.
@@ -104,10 +137,10 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor,
     lk = gk_frag[:, -1]
     fk_next = torch.cat([fk[1:], torch.full((1,), -7, dtype=torch.int32, device=dev)])
     cont = (lk == fk_next).to(torch.int32)
-    single = (fk == lk).to(torch.int32)
+    one_key = (fk == lk).to(torch.int32)
     ident = identity_row(dev)
     b = torch.where((cont != 0)[:, None], t_scan[:, -1, TW:], ident[None, :])
-    carries = seg_carry_scan(cont * single, b)                        # [NF, TW]
+    carries = seg_carry_scan(cont * one_key, b)                       # [NF, TW]
 
     # Extraction at bucket ends.
     ends_c = ends.clamp(0, n - 1)

@@ -1,4 +1,5 @@
-"""u32 arrays between numpy and the port's tensors.
+"""u32 arrays between numpy and the port's tensors, and a precomputed base
+from the JAX package's.
 
 The port holds u32 data as torch.int32 tensors with the same bits; the
 kernels read them as uint32_t.
@@ -26,3 +27,16 @@ def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"expected an int32 tensor, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def precomputed_from_numpy(table: np.ndarray, chunk_size: int, n: int, nblk: int, blocks: int,
+                           device=None):
+    """A precomputed base (ops/precompute.py::PrecomputedBase) on `device`
+    (default: the CPU) from the parts of the JAX package's: its merged table
+    as a numpy uint32 array, its window size and its ints."""
+    from ..ops.precompute import PrecomputedBase
+    from .params import MsmConfig
+
+    return PrecomputedBase(table=from_numpy_u32(table, device),
+                           cfg=MsmConfig(chunk_size=chunk_size, scalar_bits=253),
+                           n=n, nblk=nblk, blocks=blocks)

@@ -1,13 +1,15 @@
-"""Where one compute_msm spends its time on the card.
+"""Where one MSM spends its time on the card.
 
-    python -m webgpu_msm_twisted_edwards_tpu_torch.utils.profiling [--log2n 20]
+    python -m webgpu_msm_twisted_edwards_tpu_torch.utils.profiling [--log2n 20] [--fixed-base]
 
-Runs compute_msm once to warm up, then once under torch.profiler, on the
-inputs chip_smoke.py uses (points from the native oracle's generator,
-scalars from a seeded numpy generator, both resident on the card).  Prints
-one JSON object: the host wall time of the traced run, the device time
-summed by kernel name, the card's busy time (the union of its kernel and
-copy intervals) and its idle share of the wall time.  It needs a CUDA card.
+Runs compute_msm (with --fixed-base: compute_msm_precomputed over a base
+that precompute_msm_base built first, untraced) once to warm up, then once
+under torch.profiler, on the inputs chip_smoke.py uses (points from the
+native oracle's generator, scalars from a seeded numpy generator, both
+resident on the card).  Prints one JSON object: the host wall time of the
+traced run, the device time summed by kernel name, the card's busy time (the
+union of its kernel and copy intervals) and its idle share of the wall time.
+It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -76,20 +78,28 @@ def device_profile(fn) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2n", type=int, default=20)
+    ap.add_argument("--fixed-base", action="store_true",
+                    help="profile compute_msm_precomputed instead of compute_msm")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profiling: no CUDA device", file=sys.stderr)
         return 1
-    from ..models.cuzk import compute_msm
+    from ..models.cuzk import compute_msm, compute_msm_precomputed, precompute_msm_base
     from .interop import from_numpy_u32
 
     n = 1 << args.log2n
     pts, sc = bench_inputs(n)
     coords = from_numpy_u32(pts.view(np.uint32).reshape(n, 2, 8), "cuda")
     scalars = from_numpy_u32(sc.view(np.uint32).reshape(n, 8), "cuda")
-    compute_msm(coords, scalars)
-    out = device_profile(lambda: compute_msm(coords, scalars))
-    out.update(log2n=args.log2n, device=torch.cuda.get_device_name(0))
+    if args.fixed_base:
+        pre = precompute_msm_base(coords)
+        run = lambda: compute_msm_precomputed(pre, scalars)   # noqa: E731
+    else:
+        run = lambda: compute_msm(coords, scalars)            # noqa: E731
+    run()
+    out = device_profile(run)
+    out.update(log2n=args.log2n, fixed_base=args.fixed_base,
+               device=torch.cuda.get_device_name(0))
     print(json.dumps(out))
     return 0 if out["device_events"] else 1
 
