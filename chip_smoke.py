@@ -23,7 +23,17 @@ Phases (any failure raises and exits non-zero):
    phase 3 held to the oracle), and once more forced into two entry blocks;
 6. the four kernels of the fixed-base path replayed as in 4; the whole
    output of each row-wise one (convert_pair, double_rows, normalize) is
-   held against its plain version in chunks of PLAIN_ROWS rows.
+   held against its plain version in chunks of PLAIN_ROWS rows;
+7. the scan configurations at 2^20: compute_msm under each setting of the
+   pipeline's switches in CONFIGS (the module attributes, set and restored
+   here), launch counts of one run from zero, then one warm and three
+   timed runs, each result equal to the 2^20 answer of phase 3; the fused
+   gather-scan (window_group_bucket_sums(fused=True)) on the 2^20 table
+   and digits of one window group, its bucket rows bit for bit equal to the
+   default's; and the seven kernels of these configurations replayed as in
+   4 (extract_reconstruct in chunks of PLAIN_ROWS rows; msm_scan, which no
+   configuration runs, on the rows of the quarter-store run and the keys of
+   the pret run with the same bits off).
 
 It prints, on lines of their own before the last, the card line from
 nvidia-smi and one JSON object {"kernels": [...]}, and as its last line
@@ -191,6 +201,109 @@ def fixed_base_path(n: int, want: dict) -> dict:
             "captures": captures}
 
 
+#: Phase 7: configuration name, switch settings (attributes of
+#: ops/msm_pipeline.py), and the scan kernels its branch must launch (any
+#: other scan kernel must not launch).
+CONFIGS = (
+    ("pret", {"_SCAN_LAYOUT": "pret"}, {"scan_pret"}),
+    ("pret, sames off", {"_SCAN_LAYOUT": "pret", "_SCAN_SAMES": False}, {"scan_pret_keys"}),
+    ("single table, rm", {"_SINGLE_TABLE": True}, {"scan_signed"}),
+    ("single table, pret", {"_SINGLE_TABLE": True, "_SCAN_LAYOUT": "pret"},
+     {"scan_pret_signed"}),
+    ("quarter store", {"_SCAN_QSTORE": True}, {"scan_q", "extract_reconstruct"}),
+    ("MSM_DMA_EXTRACT", {"_DMA_EXTRACT": True}, {"scan"}),
+    ("MSM_SORT_I64", {"_SORT_I64": True}, {"scan"}),
+    ("MSM_DMA_GATHER=0", {"_DMA_GATHER": False}, {"scan"}),
+)
+SWITCHES = ("_SCAN_SAMES", "_SINGLE_TABLE", "_SCAN_LAYOUT", "_DMA_GATHER", "_DMA_EXTRACT",
+            "_SORT_I64", "_SCAN_QSTORE", "_DMA_GATHER_MIN_ROWS")
+SCAN_KERNELS = {"scan", "scan_signed", "scan_keys", "scan_pret", "scan_pret_keys",
+                "scan_pret_signed", "scan_q", "scan_fused"}
+CONFIG_RUNS = 3
+
+
+def configs_path(n: int, want: dict, default_launches: dict) -> dict:
+    """Drive compute_msm at n points in each configuration of CONFIGS and the
+    fused gather-scan on one window group; `want` is the default
+    configuration's answer (held to the oracle), `default_launches` its
+    launch counts.  Returns the numbers and the captured inputs of the seven
+    kernels these configurations add."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.convert import decompose_scalars_signed
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+    from webgpu_msm_twisted_edwards_tpu_torch.utils.params import tpu_msm_config
+
+    _, _, coords, scalars = card_inputs(n)
+    saved = {a: getattr(MP, a) for a in SWITCHES}
+    out, captures, launches = {}, {}, {"scan_keys": 0}
+    try:
+        for name, switches, scans in CONFIGS:
+            for a, v in {**saved, **switches}.items():
+                setattr(MP, a, v)
+            _build.captures = {}
+            _build.reset_launch_counts()
+            t0 = time.time()
+            res = compute_msm(coords, scalars)
+            first_ms = (time.time() - t0) * 1e3
+            ran = dict(_build.launches)
+            launches["scan_keys"] += ran.get("scan_keys", 0)
+            for k in scans - {"scan", "scan_signed"}:
+                captures[k] = _build.captures[k]
+                launches[k] = ran[k]
+            _build.captures = None
+            if res != want:
+                raise AssertionError(f"{name}: got {res}, the default configuration {want}")
+            launched = {k for k, v in ran.items() if v}
+            bad = (scans - launched) | (launched & SCAN_KERNELS - scans)
+            gathers, default_gathers = ran.get("gather", 0), default_launches.get("gather", 0)
+            if (bad or (name == "MSM_DMA_EXTRACT" and gathers <= default_gathers)
+                    or (name == "MSM_DMA_GATHER=0" and gathers)):
+                raise AssertionError(f"{name}: launches {ran}")
+            compute_msm(coords, scalars)
+            times = []
+            for _ in range(CONFIG_RUNS):
+                t0 = time.time()
+                again = compute_msm(coords, scalars)
+                times.append((time.time() - t0) * 1e3)
+                if again != res:
+                    raise AssertionError(f"{name}: runs disagree")
+            out[name] = {"launches": ran, "first_ms": first_ms, "runs_ms": times,
+                         "median_ms": statistics.median(times), "equals_default": True}
+            log(f"compute_msm 2^{n.bit_length() - 1} {name}: median {out[name]['median_ms']:.2f} "
+                f"ms of {CONFIG_RUNS} {[round(t, 2) for t in times]}, first run "
+                f"{first_ms:.1f} ms, equal to the default, launches {ran}")
+            torch.cuda.empty_cache()
+    finally:
+        for a, v in saved.items():
+            setattr(MP, a, v)
+        _build.captures = None
+    # msm_scan runs on no branch: it is replayed on the quarter-store run's
+    # rows (the default gather's) and the keys of the pret run.
+    captures["scan_keys"] = (None, (captures["scan_q"][1][0], captures["scan_pret_keys"][1][1]))
+
+    cfg = tpu_msm_config(n)
+    table = MP.build_full_table(coords)
+    digits_g = decompose_scalars_signed(scalars, cfg).T[:MP.default_window_group(
+        n, cfg.num_windows, coords.device)].contiguous()
+    _build.captures = {}
+    _build.reset_launch_counts()
+    fused = MP.window_group_bucket_sums(table, digits_g, cfg.num_buckets, fused=True)
+    launches["scan_fused"] = _build.launches["scan_fused"]
+    launches["scan_keys"] += _build.launches.get("scan_keys", 0)
+    captures["scan_fused"] = _build.captures["scan_fused"]
+    _build.captures = None
+    default = MP.window_group_bucket_sums(table, digits_g, cfg.num_buckets)
+    if not torch.equal(fused, default):
+        raise AssertionError("fused gather-scan: bucket rows differ from the default's")
+    out["fused"] = {"windows": digits_g.shape[0], "bucket_rows": fused.shape[0],
+                    "equals_default": True}
+    log(f"window_group_bucket_sums fused=True, {digits_g.shape[0]} windows of 2^"
+        f"{n.bit_length() - 1}: {fused.shape[0]} bucket rows equal to the default's")
+    del table, digits_g, fused, default
+    return {"configs": out, "captures": captures, "launches": launches}
+
+
 def cuda_ms(fn, reps: int) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -226,10 +339,31 @@ def work(name: str, args, out) -> tuple[int, int]:
         return moved, args[0].shape[0] * 4 * MONT
     if name in ("hist", "gather"):
         return moved, 0
-    if name in ("scan", "scan_signed"):
+    if name in ("scan", "scan_signed", "scan_keys", "scan_q"):
         # The scan reads the 3L words of each gathered row that madd uses.
         entries = args[0].shape[0] * args[0].shape[1]
         return moved - nbytes(args[0]) + entries * 3 * L * 4, entries * MADD
+    if name in ("scan_pret", "scan_pret_keys", "scan_pret_signed"):
+        # Limb-major rows: 3L of the 64 words of each entry are used.
+        entries = args[0].numel() // 64
+        return moved - nbytes(args[0]) + entries * 3 * L * 4, entries * MADD
+    if name == "scan_fused":
+        # The table read once (its used words); one madd per entry.
+        table, pidx_t = args[0], args[1]
+        return (moved - nbytes(table) + table.shape[0] * 3 * L * 4,
+                pidx_t.numel() * MADD)
+    if name == "extract_reconstruct":
+        # Per row: the 4·LP used words of the base row, the 3L used words of
+        # each pair half whose step runs, the used words of the carry where
+        # it is added, the bits word, and the 64-word row written.
+        from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.common import LP
+        bits = args[2]
+        steps = int(((bits & 1) != 0).sum() + ((bits & 2) != 0).sum())
+        carries = int(((bits & 16) != 0).sum())
+        rows = bits.shape[0]
+        moved = (4 * (rows * (4 * LP + 1) + steps * 3 * L + carries * 4 * LP)
+                 + nbytes(*outs))
+        return moved, steps * MADD + carries * FULL_ADD
     if name == "ab_scan":
         return moved, args[0].shape[0] * FULL_ADD
     if name == "masked_add":
@@ -256,9 +390,10 @@ def work(name: str, args, out) -> tuple[int, int]:
     raise KeyError(name)
 
 
-def kernel_specs() -> tuple[list, list]:
-    """(main path, fixed-base path) kernel specs: name, the wrapper the path
-    runs (timed on the whole captured input), the wrapper held against the
+def kernel_specs() -> tuple[list, list, list]:
+    """(main path, fixed-base path, scan configurations) kernel specs: name,
+    the wrapper the path runs (timed on the whole captured input), the
+    wrapper held against the
     plain version and that version, the source, the JAX kernel body it
     replaces, the library call (or None), and the rows of each call of the
     plain version (None: one call on the whole input)."""
@@ -313,7 +448,24 @@ def kernel_specs() -> tuple[list, list]:
         ("normalize", *same(PK.normalize_rows, PK.normalize_rows_plain, "precompute.cu",
                             "precompute.py:117", chunk=PLAIN_ROWS)),
     ]
-    return main, fixed
+    variants = [
+        ("scan_keys", *same(S.msm_scan, S.msm_scan_plain, "scan_variants.cu",
+                            "pallas/scan.py:62")),
+        ("scan_pret_keys", *same(S.msm_scan_pret, S.msm_scan_pret_plain, "scan_variants.cu",
+                                 "pallas/scan.py:265")),
+        ("scan_pret", *same(S.msm_scan_sames, S.msm_scan_sames_plain, "scan_variants.cu",
+                            "pallas/scan.py:284")),
+        ("scan_pret_signed", *same(S.msm_scan_signed, S.msm_scan_signed_plain,
+                                   "scan_variants.cu", "pallas/scan.py:314")),
+        ("scan_q", *same(S.msm_scan_rm_sames_q, S.msm_scan_rm_sames_q_plain, "scan_variants.cu",
+                         "pallas/scan.py:357")),
+        ("scan_fused", *same(S.msm_scan_fused, S.msm_scan_fused_plain, "scan_variants.cu",
+                             "pallas/scan.py:164")),
+        ("extract_reconstruct", *same(E.extract_reconstruct_rows,
+                                      E.extract_reconstruct_rows_plain, "ec.cu",
+                                      "pallas/ec.py:185", chunk=PLAIN_ROWS)),
+    ]
+    return main, fixed, variants
 
 
 def max_err(name: str, got: tuple, ref: tuple) -> int:
@@ -345,7 +497,10 @@ def kernels_phase(specs: list, captures: dict, launches: dict) -> list[dict]:
         step = n if chunk is None else chunk
         err, plain_ms = 0, 0.0
         for i in range(0, n, step):
-            sub = args if chunk is None else (args[0][i:i + step], *args[1:])
+            # A row-wise kernel's plain version takes a chunk of every row
+            # argument.
+            sub = tuple(a[i:i + step] if chunk and isinstance(a, torch.Tensor)
+                        and a.shape[0] == n else a for a in args)
             torch.cuda.synchronize()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -407,7 +562,7 @@ def main() -> int:
     for lib, lines in _build.ptxas_report().items():
         for ln in lines:
             log(f"ptxas {lib}: {ln}")
-    main_specs, fixed_specs = kernel_specs()
+    main_specs, fixed_specs, variant_specs = kernel_specs()
 
     e2e = {}
     for logn, capture, must_launch in ((16, False, 8), (20, True, 9)):
@@ -438,10 +593,16 @@ def main() -> int:
     fb["phase_s"] = time.time() - t_fb
     log(f"fixed-base phase with its kernel replay: {fb['phase_s']:.1f} s")
 
+    t_cf = time.time()
+    cf = configs_path(1 << 20, e2e["2^20"]["result"], e2e["2^20"]["launches"])
+    kernels += kernels_phase(variant_specs, cf.pop("captures"), cf.pop("launches"))
+    cf["phase_s"] = time.time() - t_cf
+    log(f"scan configurations phase with its kernel replay: {cf['phase_s']:.1f} s")
+
     log(json.dumps({"e2e": {k: {"median_ms": v["median_ms"], "runs_ms": v["runs_ms"],
                                 "first_ms": v["first_ms"], "launches": v["launches"],
                                 "oracle": v["oracle"]} for k, v in e2e.items()},
-                    "fixed_base_2^20": fb, "build_s": build_s,
+                    "fixed_base_2^20": fb, "configs_2^20": cf, "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

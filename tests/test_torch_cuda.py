@@ -224,3 +224,144 @@ def test_compute_msm_precomputed_cuda_matches_cpu(dev):
     got = compute_msm_precomputed(pre, scalars)
     assert got == compute_msm_precomputed(dataclasses.replace(pre, table=pre.table.cpu()), scalars)
     assert (got["x"], got["y"]) == oracle.msm(pts, sc, c=16)
+
+
+def _scan_inputs(seed, table, nf=256):
+    """Row-major rows [nf, K, TWR] from `table`, sorted keys [K, nf] with
+    runs, and a sign bit per entry."""
+    rng = np.random.default_rng(seed)
+    pidx = torch.from_numpy(rng.integers(0, table.shape[0], size=nf * S.K)).to(table.device)
+    rows = table[pidx].reshape(nf, S.K, S.TWR)
+    keys = torch.from_numpy(np.sort(rng.integers(0, 9, size=(S.K, nf)), axis=0)
+                            .astype(np.int32)).to(table.device)
+    sign = torch.from_numpy(rng.integers(0, 2, size=(S.K, nf)).astype(np.int32)).to(table.device)
+    return rng, rows, keys, sign
+
+
+def _pret(rows, lblk):
+    nf = rows.shape[0]
+    return rows.reshape(nf // lblk, lblk, S.K, S.TWR)[..., :64].permute(0, 2, 3, 1).contiguous()
+
+
+def test_scan_keys(dev):
+    table = CV.build_table_doubled_plain(_coords(np.random.default_rng(15), 64, dev))
+    _, rows, keys, _ = _scan_inputs(15, table)
+    assert _same(S.msm_scan(rows, keys), S.msm_scan_plain(rows, keys))
+
+
+@pytest.mark.parametrize("lblk", [256, 32, 8])
+def test_scan_pret_keys(dev, lblk):
+    table = CV.build_table_doubled_plain(_coords(np.random.default_rng(16), 64, dev))
+    _, rows, keys, _ = _scan_inputs(16, table)
+    rows_t = _pret(rows, lblk)
+    got = S.msm_scan_pret(rows_t, keys)
+    assert _same(got, S.msm_scan_pret_plain(rows_t, keys))
+    assert _same(got, S.msm_scan(rows, keys))
+
+
+def test_scan_pret_sames(dev):
+    table = CV.build_table_doubled_plain(_coords(np.random.default_rng(17), 64, dev))
+    _, rows, keys, _ = _scan_inputs(17, table)
+    rows_t, sames = _pret(rows, 128), S.keys_to_sames(keys)
+    assert _same(S.msm_scan_sames(rows_t, sames), S.msm_scan_sames_plain(rows_t, sames))
+
+
+def test_scan_pret_signed(dev):
+    table = CV.build_table_pair_plain(_coords(np.random.default_rng(18), 64, dev))[0]
+    _, rows, keys, sign = _scan_inputs(18, table)
+    rows_t, bits = _pret(rows, 64), S.keys_to_sames(keys) | (sign << 1)
+    assert _same(S.msm_scan_signed(rows_t, bits), S.msm_scan_signed_plain(rows_t, bits))
+
+
+def test_scan_q(dev):
+    table = CV.build_table_doubled_plain(_coords(np.random.default_rng(19), 64, dev))
+    _, rows, keys, _ = _scan_inputs(19, table)
+    sames = S.keys_to_sames(keys)
+    got = S.msm_scan_rm_sames_q(rows, sames)
+    assert _same(got, S.msm_scan_rm_sames_q_plain(rows, sames))
+    assert _same(got, S.msm_scan_rm_sames(rows, sames)[:, 1::2])
+
+
+def test_scan_fused(dev):
+    rng = np.random.default_rng(20)
+    table = CV.build_table_doubled_plain(_coords(rng, 300, dev))
+    pidx_t = torch.from_numpy(rng.integers(0, 600, size=(S.K, 256)).astype(np.int32)).to(dev)
+    keys = torch.from_numpy(np.sort(rng.integers(0, 9, size=(S.K, 256)), axis=0)
+                            .astype(np.int32)).to(dev)
+    got = S.msm_scan_fused(table, pidx_t, keys)
+    assert _same(got, S.msm_scan_fused_plain(table, pidx_t, keys))
+    assert _same(got, S.msm_scan(G.row_gather(table, pidx_t).reshape(256, S.K, S.TWR), keys))
+
+
+def test_extract_reconstruct(dev):
+    rng = np.random.default_rng(21)
+    n = 1000
+    table = CV.build_table_doubled_plain(_coords(rng, 64, dev))
+    base, carry = _point_rows(rng, n, dev), _point_rows(rng, n, dev)
+    pair = table[torch.from_numpy(rng.integers(0, 128, size=2 * n)).to(dev)].reshape(n, 2 * S.TWR)
+    bits = torch.from_numpy(rng.integers(0, 32, size=n).astype(np.int32)).to(dev)
+    assert _same(E.extract_reconstruct_rows(base, pair, bits, carry),
+                 E.extract_reconstruct_rows_plain(base, pair, bits, carry))
+
+
+#: Switch settings of the configurations of the bucket-sum stage, and the
+#: kernels each must launch beyond the default's.
+CONFIGS = {
+    "pret": ({"_SCAN_LAYOUT": "pret"}, {"scan_pret"}),
+    "pret_keys": ({"_SCAN_LAYOUT": "pret", "_SCAN_SAMES": False}, {"scan_pret_keys"}),
+    "single_rm": ({"_SINGLE_TABLE": True}, {"scan_signed", "convert_pair"}),
+    "single_pret": ({"_SINGLE_TABLE": True, "_SCAN_LAYOUT": "pret"},
+                    {"scan_pret_signed", "convert_pair"}),
+    "quarter_store": ({"_SCAN_QSTORE": True}, {"scan_q", "extract_reconstruct"}),
+    "dma_extract": ({"_DMA_EXTRACT": True}, {"scan", "gather"}),
+    "sort_i64": ({"_SORT_I64": True}, {"scan"}),
+    "no_dma_gather": ({"_DMA_GATHER": False, "_DMA_GATHER_MIN_ROWS": 0}, {"scan"}),
+}
+
+
+@pytest.fixture(scope="module")
+def msm_2_14(dev):
+    """2^14 points (c = 13) and the CPU's answer in the default
+    configuration."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
+    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+
+    n = 1 << 14
+    pts = oracle.gen_points(n, seed=22)
+    rng = np.random.default_rng(22)
+    sc = rng.integers(0, 1 << 62, size=(n, 4), dtype=np.uint64)
+    sc[:, 3] &= (1 << 58) - 1
+    coords = pts.view(np.uint32).reshape(n, 2, 8)
+    scalars = sc.view(np.uint32).reshape(n, 8)
+    return coords, scalars, compute_msm(coords, scalars, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_compute_msm_configuration_matches_cpu(msm_2_14, monkeypatch, name):
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
+
+    switches, kernels = CONFIGS[name]
+    for attr, value in switches.items():
+        monkeypatch.setattr(MP, attr, value)
+    coords, scalars, want = msm_2_14
+    _build.reset_launch_counts()
+    assert compute_msm(coords, scalars) == want
+    ran = {k for k, v in _build.launches.items() if v}
+    assert kernels <= ran, ran
+    scans = {"scan", "scan_signed", "scan_pret", "scan_pret_keys", "scan_pret_signed", "scan_q"}
+    assert not (scans - kernels) & ran, ran
+    if name == "no_dma_gather":
+        assert "gather" not in ran
+
+
+def test_fused_bucket_rows_match_default(dev):
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
+
+    rng = np.random.default_rng(23)
+    n, nb = 4096, 256
+    table = CV.build_table_doubled(_coords(rng, n, dev))
+    digits = torch.from_numpy(rng.integers(-nb, nb + 1, size=(3, n)).astype(np.int32)).to(dev)
+    digits[1, :2000] = 5                                     # a run over many fragments
+    assert _same(MP.window_group_bucket_sums(table, digits, nb, fused=True),
+                 MP.window_group_bucket_sums(table, digits, nb))

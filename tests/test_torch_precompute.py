@@ -300,11 +300,15 @@ def test_two_blocks_equal_one_block(jax_run, port):
 
 
 def test_without_table_base_the_table_must_be_doubled(jax_run):
-    """Only table_base selects the single-table mode; without it a table of
-    n rows is refused rather than read as a doubled one."""
+    """Without table_base the table's row count selects the mode, as in the
+    JAX package: 2n rows doubled, n rows single (read as table_base=0
+    reads it); any other count is refused rather than misread."""
     digits = torch.from_numpy(jax_run["digits"][:N].copy())[None, :]
-    with pytest.raises(ValueError, match=f"expected {2 * N}"):
-        MP.window_group_bucket_sums(from_numpy_u32(jax_run["table"][:N]), digits, 256)
+    with pytest.raises(ValueError, match=f"expected {N} \\(single\\) or {2 * N}"):
+        MP.window_group_bucket_sums(from_numpy_u32(jax_run["table"][:N // 2]), digits, 256)
+    table = from_numpy_u32(jax_run["table"][:N])
+    assert torch.equal(MP.window_group_bucket_sums(table, digits, 256),
+                       MP.window_group_bucket_sums(table, digits, 256, table_base=0))
 
 
 # ---------------------------------------------------------------------------

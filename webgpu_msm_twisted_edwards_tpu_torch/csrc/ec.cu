@@ -1,4 +1,5 @@
-// Point operations over packed rows: the masked add and repeated doubling.
+// Point operations over packed rows: the masked add, the quarter-store
+// extraction and repeated doubling.
 //
 // Masked add, out_i = mask_i ? a_i + b_i : a_i.
 // Replaces webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py::
@@ -47,6 +48,41 @@ double_rows_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, 
   pt_store(out + i * MSM_TW, p);
 }
 
+// Replaces webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py::
+// _extract_reconstruct_kernel (extract_reconstruct_rows), the extraction of
+// the quarter-store scan: per bucket end, the scan value at an unstored step
+// replayed from the nearest stored one, then the carry added.  Bits of
+// bits[i]: 1 step at 4q (restarting from the identity unless 4), 2 step at
+// 4q+1 (restarting unless 8), 16 add the carry.
+//
+// Bound on the H100: operations (up to two madds and one full add, about
+// 19 K multiply-adds, per row against at most 804 used bytes read and 256
+// written).
+// Design: one thread per row; a step or the carry add whose bit is clear is
+// skipped (the JAX kernel computes and discards it; the stored row is the
+// same), and the stored row has its 24 padding words zero.
+__global__ void __launch_bounds__(128)
+extract_reconstruct_kernel(const uint32_t* __restrict__ base, const uint32_t* __restrict__ pair,
+                           const int32_t* __restrict__ bits, const uint32_t* __restrict__ carry,
+                           uint32_t* __restrict__ out, long long n, long long twr) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int b = bits[i];
+  const Pt ident = pt_identity();
+  Pt v = pt_load(base + i * MSM_TW);
+  const uint32_t* rows = pair + i * 2 * twr;
+#pragma unroll 1
+  for (int s = 0; s < 2; ++s) {
+    if (b & (1 << s)) {
+      Fe d2, s2, td2;
+      load_cached(rows + s * twr, d2, s2, td2);
+      v = madd(pt_select((b & (4 << s)) != 0, v, ident), d2, s2, td2);
+    }
+  }
+  if (b & 16) v = full_add(v, pt_load(carry + i * MSM_TW));
+  pt_store(out + i * MSM_TW, v);
+}
+
 }  // namespace msm
 
 // a, b, out: [n, 64] u32; mask: [n] i32.
@@ -57,6 +93,21 @@ extern "C" int msm_masked_add_rows(const void* a, const void* b, const void* mas
     const long long blocks = (n + threads - 1) / threads;
     msm::masked_add_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (const int32_t*)mask, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// base, carry, out: [n, 64] u32; pair: [n, 2*twr] u32 (twr % 4 == 0,
+// twr >= 60); bits: [n] i32.
+extern "C" int msm_extract_reconstruct_rows(const void* base, const void* pair, const void* bits,
+                                            const void* carry, void* out, long long n,
+                                            long long twr, void* stream) {
+  if (n > 0) {
+    const int threads = 128;
+    const long long blocks = (n + threads - 1) / threads;
+    msm::extract_reconstruct_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)base, (const uint32_t*)pair, (const int32_t*)bits,
+        (const uint32_t*)carry, (uint32_t*)out, n, twr);
   }
   return (int)cudaGetLastError();
 }

@@ -66,6 +66,27 @@ __device__ __forceinline__ void pt_store(uint32_t* row, const Pt& p) {
     r4[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
 }
 
+// The cached form (y-x, y+x, 2*d*t) of one table row: its first 3*MSM_L
+// words, unpacked limbs, read with 16-byte loads (16-byte aligned row).
+__device__ __forceinline__ void load_cached(const uint32_t* row, Fe& d2, Fe& s2, Fe& td2) {
+  uint32_t w[3 * MSM_L];
+  const uint4* r4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int i = 0; i < 3 * MSM_L / 4; ++i) {
+    uint4 q = r4[i];
+    w[4 * i] = q.x;
+    w[4 * i + 1] = q.y;
+    w[4 * i + 2] = q.z;
+    w[4 * i + 3] = q.w;
+  }
+#pragma unroll
+  for (int i = 0; i < MSM_L; ++i) {
+    d2.v[i] = w[i];
+    s2.v[i] = w[MSM_L + i];
+    td2.v[i] = w[2 * MSM_L + i];
+  }
+}
+
 // madd, full_add and pt_double are real calls (__noinline__): with them
 // inlined into the loop kernels of scan.cu and bpr.cu, nvcc's front end
 // (cicc, CUDA 12.8) dies with a segmentation fault.  Their arguments and

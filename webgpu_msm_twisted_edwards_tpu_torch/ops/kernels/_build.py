@@ -31,7 +31,7 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 #: Sources, one library each.
-SOURCES = ("convert", "hist", "gather", "scan", "ec", "bpr", "precompute")
+SOURCES = ("convert", "hist", "gather", "scan", "scan_variants", "ec", "bpr", "precompute")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

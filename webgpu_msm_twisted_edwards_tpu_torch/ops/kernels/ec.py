@@ -1,5 +1,6 @@
 """Extended twisted Edwards point arithmetic on limb tensors, and the point
-kernels over packed rows: the masked add and repeated doubling.
+kernels over packed rows: the masked add, the quarter-store extraction and
+repeated doubling.
 
 Plain counterparts of webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py and of
 csrc/ec.cuh: the rotated a = -1 hwcd formulas, with the same lazy products
@@ -19,6 +20,7 @@ import torch
 from ...utils.params import PARAMS
 from . import _build
 from .common import (
+    L,
     LP,
     Consts,
     int_to_limbs,
@@ -159,6 +161,51 @@ def masked_add_rows(a_rows: torch.Tensor, b_rows: torch.Tensor,
     mask = _build.check(mask.to(torch.int32), torch.int32, (n,), "mask")
     out = torch.empty_like(a_rows)
     _build.launch("masked_add", "ec", "msm_masked_add_rows", a_rows, b_rows, mask, out, n)
+    return out
+
+
+def extract_reconstruct_rows_plain(base_rows: torch.Tensor, pair_rows: torch.Tensor,
+                                   bits: torch.Tensor, carry_rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`extract_reconstruct_rows`: the JAX kernel's
+    compute-and-select, every step computed and kept where its bit is set."""
+    c = load_consts(base_rows.device)
+    twr = pair_rows.shape[1] // 2
+    v = rows_to_pt(base_rows)
+    ident = pt_identity(base_rows.shape[0], c)
+    for base, mbit, sbit in ((0, 1, 4), (twr, 2, 8)):
+        slab = u32(pair_rows[:, base:base + 3 * L]).T
+        stepped = madd(pt_select((bits & sbit) != 0, v, ident),
+                       slab[0:L], slab[L:2 * L], slab[2 * L:3 * L], c)
+        v = pt_select((bits & mbit) != 0, stepped, v)
+    out = pt_select((bits & 16) != 0, full_add(v, rows_to_pt(carry_rows), c), v)
+    return pt_to_rows(out)
+
+
+def extract_reconstruct_rows(base_rows: torch.Tensor, pair_rows: torch.Tensor,
+                             bits: torch.Tensor, carry_rows: torch.Tensor) -> torch.Tensor:
+    """The quarter-store extraction: per row, the scan value at an unstored
+    step replayed from base_rows [N, TW] (the nearest stored value before
+    it) with up to two scan steps over pair_rows [N, 2*twr] (the scan-input
+    rows of steps 4q and 4q+1, cached form in the first 3L words of each
+    half), then the carry added.  bits [N] int32: 1 step at 4q, 2 step at
+    4q+1, 4 and 8 their same-segment bits (clear: the step restarts from the
+    identity), 16 add carry_rows [N, TW].  Returns [N, TW] int32 packed rows
+    with zero padding.  Launches csrc/ec.cu on CUDA tensors; CPU tensors
+    take the plain version."""
+    _build.capture("extract_reconstruct", base_rows, pair_rows, bits, carry_rows)
+    if not _build.on_cuda(base_rows, pair_rows, bits, carry_rows):
+        return extract_reconstruct_rows_plain(base_rows, pair_rows, bits, carry_rows)
+    n, twr2 = pair_rows.shape
+    if twr2 % 8 or twr2 < 6 * L:
+        raise ValueError(f"pair_rows width {twr2}: expected two rows of >= {3 * L} words, "
+                         "each a multiple of 4")
+    base_rows = _build.check(base_rows, torch.int32, (n, TW), "base_rows")
+    pair_rows = _build.check(pair_rows, torch.int32, (n, twr2), "pair_rows")
+    bits = _build.check(bits.to(torch.int32), torch.int32, (n,), "bits")
+    carry_rows = _build.check(carry_rows, torch.int32, (n, TW), "carry_rows")
+    out = torch.empty_like(base_rows)
+    _build.launch("extract_reconstruct", "ec", "msm_extract_reconstruct_rows", base_rows,
+                  pair_rows, bits, carry_rows, out, n, twr2 // 2)
     return out
 
 

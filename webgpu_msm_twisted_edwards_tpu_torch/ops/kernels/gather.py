@@ -36,3 +36,15 @@ def row_gather(table: torch.Tensor, pidx_t: torch.Tensor) -> torch.Tensor:
     out = torch.empty((nf * k, w), dtype=torch.int32, device=table.device)
     _build.launch("gather", "gather", "msm_row_gather", table, pidx_t, out, nf, k, w)
     return out
+
+
+def row_gather_flat(table: torch.Tensor, flat_idx: torch.Tensor, k: int = 64) -> torch.Tensor:
+    """table[flat_idx] for a flat [N] index vector (N a multiple of k)
+    through :func:`row_gather`: the counterpart of the JAX package's
+    ops/pallas/gather.py::dma_gather_flat, which the extraction gathers take
+    under MSM_DMA_EXTRACT.  The kernel takes any row width that is a multiple
+    of 4 words, so the 64-word carry rows need no padding to 128."""
+    n = flat_idx.shape[0]
+    if n % k:
+        raise ValueError(f"{n} indices: expected a multiple of {k}")
+    return row_gather(table, flat_idx.to(torch.int32).reshape(n // k, k).T.contiguous())

@@ -1,16 +1,27 @@
 """Bucket accumulation as a segmented scan over sorted entries.
 
 Entries sorted by bucket are cut into fragments of K = 64; each fragment is
-scanned on its own (`msm_scan_rm_sames`, one mixed add per entry), and a
-hierarchical carry scan over fragments (`seg_carry_scan`) stitches buckets
-that span fragments.
+scanned on its own (one mixed add per entry), and a hierarchical carry scan
+over fragments (`seg_carry_scan`) stitches buckets that span fragments.
 
-The fixed-base path scans rows of the single (non-negated) table with
-`msm_scan_rm_signed`, which applies each entry's digit sign itself.
+The scan variants are the JAX package's, one recurrence with three choices
+(`_scan_plain`, and the template of csrc/scan.cuh):
 
-Kernels: csrc/scan.cu, replacing the JAX package's
-ops/pallas/scan.py::_msm_scan_rm_sames_kernel, ::_msm_scan_rm_signed_kernel
-and ::_ab_scan_kernel.
+    wrapper               rows                mask            stored steps
+    msm_scan_rm_sames     row-major           hoisted bits    all (the main path)
+    msm_scan_rm_signed    row-major, single   bits + sign     all (fixed base)
+    msm_scan              row-major           key compare     all
+    msm_scan_pret         limb-major          key compare     all
+    msm_scan_sames        limb-major          hoisted bits    all
+    msm_scan_signed       limb-major, single  bits + sign     all
+    msm_scan_rm_sames_q   row-major           hoisted bits    4i+2, 4i+3
+    msm_scan_fused        table by index      key compare     all
+
+Kernels: csrc/scan.cu (the first two and the carry scan) and
+csrc/scan_variants.cu, replacing the JAX package's ops/pallas/scan.py::
+_msm_scan_rm_sames_kernel, _msm_scan_rm_signed_kernel, _msm_scan_kernel,
+_msm_scan_pret_kernel, _msm_scan_sames_kernel, _msm_scan_signed_kernel,
+_msm_scan_rm_sames_q_kernel, _msm_scan_fused_kernel and _ab_scan_kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +35,9 @@ from .ec import TW, full_add, madd, masked_add_rows, pt_identity, pt_select, pt_
 
 #: Entries per fragment (scan depth).
 K = 64
+#: Fragments per block of the limb-major (pret) layout, halved until it
+#: divides the fragment count.
+LBLK = 256
 
 
 def keys_to_sames(keys_t: torch.Tensor) -> torch.Tensor:
@@ -34,35 +48,112 @@ def keys_to_sames(keys_t: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(eq[:1]), eq])
 
 
-def _scan_rm_plain(rows: torch.Tensor, bits_t: torch.Tensor, signed: bool) -> torch.Tensor:
-    nf = rows.shape[0]
-    c = load_consts(rows.device)
+def _scan_plain(read_rows, aux_t: torch.Tensor, mask: str, store: int = 2) -> torch.Tensor:
+    """The scan recurrence of the JAX package's _msm_scan_body.
+    read_rows(j) -> [3L, NF] int64 limb slab of step j's table rows; aux_t
+    [K, NF] int32 step words, read by `mask`: "keys" compares sorted keys
+    with the previous step's (-1 before step 0), "sames" takes the hoisted
+    bit, "signed" bit 0 as the same bit and bit 1 as the digit's sign.
+    store=2 keeps every step, store=4 steps 4i+2 and 4i+3; returns
+    [NF, K//store, 2*TW] int32, two steps side by side per row."""
+    nf = aux_t.shape[1]
+    c = load_consts(aux_t.device)
     ident = pt_identity(nf, c)
     acc = ident
+    kprev = torch.full((nf,), -1, dtype=aux_t.dtype, device=aux_t.device)
     steps = []
     for j in range(K):
-        slab = u32(rows[:, j, 0:3 * L]).T                       # [3L, NF]
+        slab = read_rows(j)
         d2, s2, td2 = slab[0:L], slab[L:2 * L], slab[2 * L:3 * L]
-        if signed:
-            neg = (bits_t[j] & 2) != 0
+        aux = aux_t[j]
+        if mask == "keys":
+            same, kprev = aux == kprev, aux
+        elif mask == "sames":
+            same = aux != 0
+        else:
+            neg = (aux & 2) != 0
             d2, s2 = torch.where(neg, s2, d2), torch.where(neg, d2, s2)
             td2 = torch.where(neg, fr_neg_lazy(td2, c), td2)
-            same = (bits_t[j] & 1) != 0
-        else:
-            same = bits_t[j] != 0
+            same = (aux & 1) != 0
         acc = madd(pt_select(same, acc, ident), d2, s2, td2, c)
-        steps.append(pt_to_rows(acc))
-    return torch.stack(steps, dim=1).reshape(nf, K // 2, 2 * TW)
+        if store == 2 or j % 4 >= 2:
+            steps.append(pt_to_rows(acc))
+    return torch.stack(steps, dim=1).reshape(nf, K // store, 2 * TW)
+
+
+def _rm_reader(rows: torch.Tensor):
+    """Step reader of row-major [NF, K, TWR] rows."""
+    return lambda j: u32(rows[:, j, 0:3 * L]).T
+
+
+def _pret_reader(rows_t: torch.Tensor):
+    """Step reader of limb-major [NF//lblk, K, 64, lblk] rows: fragment f is
+    lane f % lblk of block f // lblk."""
+    nfb, _, _, lblk = rows_t.shape
+    return lambda j: u32(rows_t[:, j, 0:3 * L, :]).permute(1, 0, 2).reshape(3 * L, nfb * lblk)
 
 
 def msm_scan_rm_sames_plain(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`msm_scan_rm_sames`."""
-    return _scan_rm_plain(rows, sames_t, signed=False)
+    return _scan_plain(_rm_reader(rows), sames_t, "sames")
 
 
 def msm_scan_rm_signed_plain(rows: torch.Tensor, bits_t: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`msm_scan_rm_signed`."""
-    return _scan_rm_plain(rows, bits_t, signed=True)
+    return _scan_plain(_rm_reader(rows), bits_t, "signed")
+
+
+def msm_scan_plain(rows: torch.Tensor, keys_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan`."""
+    return _scan_plain(_rm_reader(rows), keys_t, "keys")
+
+
+def msm_scan_pret_plain(rows_t: torch.Tensor, keys_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan_pret`."""
+    return _scan_plain(_pret_reader(rows_t), keys_t, "keys")
+
+
+def msm_scan_sames_plain(rows_t: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan_sames`."""
+    return _scan_plain(_pret_reader(rows_t), sames_t, "sames")
+
+
+def msm_scan_signed_plain(rows_t: torch.Tensor, bits_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan_signed`."""
+    return _scan_plain(_pret_reader(rows_t), bits_t, "signed")
+
+
+def msm_scan_rm_sames_q_plain(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan_rm_sames_q`."""
+    return _scan_plain(_rm_reader(rows), sames_t, "sames", store=4)
+
+
+def msm_scan_fused_plain(table: torch.Tensor, pidx_t: torch.Tensor,
+                         keys_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan_fused`."""
+    return _scan_plain(lambda j: u32(table[pidx_t[j].to(torch.int64), 0:3 * L]).T, keys_t, "keys")
+
+
+def _launch_rm(kernel: str, lib: str, fn: str, rows: torch.Tensor, aux_t: torch.Tensor,
+               store: int = 2) -> torch.Tensor:
+    nf = rows.shape[0]
+    rows = _build.check(rows, torch.int32, (nf, K, TWR), "rows")
+    aux_t = _build.check(aux_t, torch.int32, (K, nf), "aux_t")
+    out = torch.empty((nf, K // store, 2 * TW), dtype=torch.int32, device=rows.device)
+    _build.launch(kernel, lib, fn, rows, aux_t, out, nf)
+    return out
+
+
+def _launch_pret(kernel: str, fn: str, rows_t: torch.Tensor, aux_t: torch.Tensor) -> torch.Tensor:
+    if rows_t.dim() != 4:
+        raise ValueError(f"rows_t: expected [NF//lblk, K, 64, lblk], got {tuple(rows_t.shape)}")
+    nfb, _, _, lblk = rows_t.shape
+    nf = nfb * lblk
+    rows_t = _build.check(rows_t, torch.int32, (nfb, K, 64, lblk), "rows_t")
+    aux_t = _build.check(aux_t, torch.int32, (K, nf), "aux_t")
+    out = torch.empty((nf, K // 2, 2 * TW), dtype=torch.int32, device=rows_t.device)
+    _build.launch(kernel, "scan_variants", fn, rows_t, aux_t, out, nf, lblk)
+    return out
 
 
 def msm_scan_rm_sames(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
@@ -75,12 +166,7 @@ def msm_scan_rm_sames(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor
     _build.capture("scan", rows, sames_t)
     if not _build.on_cuda(rows, sames_t):
         return msm_scan_rm_sames_plain(rows, sames_t)
-    nf = rows.shape[0]
-    rows = _build.check(rows, torch.int32, (nf, K, TWR), "rows")
-    sames_t = _build.check(sames_t, torch.int32, (K, nf), "sames_t")
-    out = torch.empty((nf, K // 2, 2 * TW), dtype=torch.int32, device=rows.device)
-    _build.launch("scan", "scan", "msm_scan_rm_sames", rows, sames_t, out, nf)
-    return out
+    return _launch_rm("scan", "scan", "msm_scan_rm_sames", rows, sames_t)
 
 
 def msm_scan_rm_signed(rows: torch.Tensor, bits_t: torch.Tensor) -> torch.Tensor:
@@ -92,11 +178,80 @@ def msm_scan_rm_signed(rows: torch.Tensor, bits_t: torch.Tensor) -> torch.Tensor
     _build.capture("scan_signed", rows, bits_t)
     if not _build.on_cuda(rows, bits_t):
         return msm_scan_rm_signed_plain(rows, bits_t)
-    nf = rows.shape[0]
-    rows = _build.check(rows, torch.int32, (nf, K, TWR), "rows")
-    bits_t = _build.check(bits_t, torch.int32, (K, nf), "bits_t")
-    out = torch.empty((nf, K // 2, 2 * TW), dtype=torch.int32, device=rows.device)
-    _build.launch("scan_signed", "scan", "msm_scan_rm_signed", rows, bits_t, out, nf)
+    return _launch_rm("scan_signed", "scan", "msm_scan_rm_signed", rows, bits_t)
+
+
+def msm_scan(rows: torch.Tensor, keys_t: torch.Tensor) -> torch.Tensor:
+    """As :func:`msm_scan_rm_sames` with the sorted bucket keys keys_t
+    [K, NF] int32 in place of the same bits: the kernel compares each key
+    with the previous step's (-1 before a fragment's first step).  Launches
+    csrc/scan_variants.cu on CUDA tensors; CPU tensors take the plain
+    version."""
+    _build.capture("scan_keys", rows, keys_t)
+    if not _build.on_cuda(rows, keys_t):
+        return msm_scan_plain(rows, keys_t)
+    return _launch_rm("scan_keys", "scan_variants", "msm_scan_keys", rows, keys_t)
+
+
+def msm_scan_pret(rows_t: torch.Tensor, keys_t: torch.Tensor) -> torch.Tensor:
+    """As :func:`msm_scan` over the limb-major layout rows_t
+    [NF//lblk, K, 64, lblk] int32: word i of step j's row of fragment
+    b*lblk + l at [b, j, i, l] (the first 64 words of each row).  Launches
+    csrc/scan_variants.cu on CUDA tensors; CPU tensors take the plain
+    version."""
+    _build.capture("scan_pret_keys", rows_t, keys_t)
+    if not _build.on_cuda(rows_t, keys_t):
+        return msm_scan_pret_plain(rows_t, keys_t)
+    return _launch_pret("scan_pret_keys", "msm_scan_pret_keys", rows_t, keys_t)
+
+
+def msm_scan_sames(rows_t: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
+    """As :func:`msm_scan_rm_sames` over the limb-major layout of
+    :func:`msm_scan_pret`.  Launches csrc/scan_variants.cu on CUDA tensors;
+    CPU tensors take the plain version."""
+    _build.capture("scan_pret", rows_t, sames_t)
+    if not _build.on_cuda(rows_t, sames_t):
+        return msm_scan_sames_plain(rows_t, sames_t)
+    return _launch_pret("scan_pret", "msm_scan_pret_sames", rows_t, sames_t)
+
+
+def msm_scan_signed(rows_t: torch.Tensor, bits_t: torch.Tensor) -> torch.Tensor:
+    """As :func:`msm_scan_rm_signed` over the limb-major layout of
+    :func:`msm_scan_pret`.  Launches csrc/scan_variants.cu on CUDA tensors;
+    CPU tensors take the plain version."""
+    _build.capture("scan_pret_signed", rows_t, bits_t)
+    if not _build.on_cuda(rows_t, bits_t):
+        return msm_scan_signed_plain(rows_t, bits_t)
+    return _launch_pret("scan_pret_signed", "msm_scan_pret_signed", rows_t, bits_t)
+
+
+def msm_scan_rm_sames_q(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
+    """As :func:`msm_scan_rm_sames`, storing only steps 4i+2 and 4i+3:
+    returns [NF, K//4, 2*TW] int32, row i holding those two steps side by
+    side (extraction replays steps 4i and 4i+1, ec.py::
+    extract_reconstruct_rows).  Launches csrc/scan_variants.cu on CUDA
+    tensors; CPU tensors take the plain version."""
+    _build.capture("scan_q", rows, sames_t)
+    if not _build.on_cuda(rows, sames_t):
+        return msm_scan_rm_sames_q_plain(rows, sames_t)
+    return _launch_rm("scan_q", "scan_variants", "msm_scan_rm_sames_q", rows, sames_t, store=4)
+
+
+def msm_scan_fused(table: torch.Tensor, pidx_t: torch.Tensor, keys_t: torch.Tensor) -> torch.Tensor:
+    """As :func:`msm_scan`, reading step j of fragment f from table row
+    pidx_t[j, f] (table [ns, TWR] int32, pidx_t [K, NF] int32 rows in
+    [0, ns)): the gather fused into the scan.  Launches
+    csrc/scan_variants.cu on CUDA tensors; CPU tensors take the plain
+    version."""
+    _build.capture("scan_fused", table, pidx_t, keys_t)
+    if not _build.on_cuda(table, pidx_t, keys_t):
+        return msm_scan_fused_plain(table, pidx_t, keys_t)
+    nf = pidx_t.shape[1]
+    table = _build.check(table, torch.int32, (-1, TWR), "table")
+    pidx_t = _build.check(pidx_t, torch.int32, (K, nf), "pidx_t")
+    keys_t = _build.check(keys_t, torch.int32, (K, nf), "keys_t")
+    out = torch.empty((nf, K // 2, 2 * TW), dtype=torch.int32, device=table.device)
+    _build.launch("scan_fused", "scan_variants", "msm_scan_fused", table, pidx_t, keys_t, out, nf)
     return out
 
 

@@ -1,29 +1,43 @@
 """The MSM device pipeline: window sums, or the folded total, of
 [n, 2, 8] affine point words and [n, 8] scalar words.
 
-Port of the default path of the JAX package's ops/msm_pipeline.py:
+Port of the JAX package's ops/msm_pipeline.py:
 
-    1. table + digits   build_table_doubled (kernel) builds the doubled
-                        table, rows n..2n-1 the negated points;
+    1. table + digits   build_prod_table: build_table_doubled (kernel), rows
+                        n..2n-1 the negated points, or under MSM_SINGLE_TABLE
+                        build_table (kernel), n rows;
                         decompose_scalars_signed (torch) the signed digits.
     2. per window group bucket sums (window_group_bucket_sums):
-                        a stable sort of (bucket key, signed row) per
-                        window; bucket_counts (kernel); row_gather (kernel)
-                        or plain indexing into sorted order; the fragment
-                        scan msm_scan_rm_sames (kernel); the carry scan
-                        seg_carry_scan (kernels); extraction at bucket ends
-                        through masked_add_rows (kernel).
+                        a sort of (bucket key, signed row) per window;
+                        bucket_counts (kernel); row_gather (kernel) or plain
+                        indexing into sorted order; a fragment scan (kernel,
+                        one of the variants of ops/kernels/scan.py); the
+                        carry scan seg_carry_scan (kernels); extraction at
+                        bucket ends through masked_add_rows (kernel), or
+                        extract_reconstruct_rows (kernel) after the
+                        quarter-store scan.
     3. bpr (kernels) to window sums, and horner_fold (kernel) to the total.
+
+The switches below select among the JAX package's configurations of step 2.
+Each is read from its environment variable once, at import, with the JAX
+package's name and default, into a module attribute that the pipeline reads
+at call time, so a caller may also set the attribute.  With none set, the
+pipeline runs the doubled table, the row-major scan input, hoisted
+same-segment bits, the stable two-operand sort and the row-gather kernel
+from _DMA_GATHER_MIN_ROWS rows.
 
 window_group_bucket_sums also serves the fixed-base path (ops/precompute.py):
 given table_base, the digits are one block of a merged window-major single
 table (no negations), the digit sign rides bit 30 of the sorted payload, and
-msm_scan_rm_signed (kernel) applies it.
+the scan applies it.
 
-Every stage matches the JAX package's output bit for bit on the same input.
+Every stage matches the JAX package's output bit for bit on the same input,
+in every configuration.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -31,24 +45,54 @@ from ..utils.params import MsmConfig
 from ..utils.runtime import device_memory_bytes
 from .convert import decompose_scalars_signed
 from .kernels.bpr import bpr, horner_fold
-from .kernels.convert import build_table_doubled
-from .kernels.ec import TW, identity_row, masked_add_rows
-from .kernels.gather import row_gather
+from .kernels.convert import build_table, build_table_doubled
+from .kernels.ec import TW, extract_reconstruct_rows, identity_row, masked_add_rows
+from .kernels.gather import row_gather, row_gather_flat
 from .kernels.hist import bucket_counts
 from .kernels.scan import (
     K,
+    LBLK,
     TWR,
     keys_to_sames,
+    msm_scan_fused,
+    msm_scan_pret,
     msm_scan_rm_sames,
+    msm_scan_rm_sames_q,
     msm_scan_rm_signed,
+    msm_scan_sames,
+    msm_scan_signed,
     seg_carry_scan,
 )
 
-#: From this many gathered rows per window group the gather runs on the
-#: row-gather kernel, below it on plain indexing.  The JAX package's gate
-#: value, kept so the two paths split where they do there; its
+#: MSM_SCAN_SAMES: the limb-major scan takes hoisted same-segment bits
+#: (msm_scan_sames); "0" compares the keys in the kernel (msm_scan_pret).
+_SCAN_SAMES = os.environ.get("MSM_SCAN_SAMES", "1") == "1"
+#: MSM_SINGLE_TABLE: an n-row table without negations; the scan applies the
+#: digit signs (msm_scan_rm_signed, msm_scan_signed).
+_SINGLE_TABLE = os.environ.get("MSM_SINGLE_TABLE", "0") == "1"
+#: MSM_SCAN_LAYOUT: "rm" feeds the row-major gather output to the scan;
+#: "pret" gathers by indexing and permutes the rows into the limb-major
+#: [NF//lblk, K, 64, lblk] layout first.
+_SCAN_LAYOUT = os.environ.get("MSM_SCAN_LAYOUT", "rm")
+#: MSM_DMA_GATHER: the row-major path gathers on the row-gather kernel from
+#: _DMA_GATHER_MIN_ROWS rows per window group; "0" always indexes.
+_DMA_GATHER = os.environ.get("MSM_DMA_GATHER", "1") == "1"
+#: MSM_DMA_EXTRACT: the extraction gathers (scan rows, scan-input rows,
+#: carries) go through the row-gather kernel instead of indexing.
+_DMA_EXTRACT = os.environ.get("MSM_DMA_EXTRACT", "0") == "1"
+#: MSM_SORT_I64: one sort of (key << 32) | row in int64 in place of the
+#: stable sort of keys with rows; within a bucket, entries then come in row
+#: order, so bucket sums are the same points in other representatives.
+_SORT_I64 = os.environ.get("MSM_SORT_I64", "0") == "1"
+#: MSM_SCAN_QSTORE: the row-major doubled-table scan stores only steps 4i+2
+#: and 4i+3 (msm_scan_rm_sames_q); extraction replays the others
+#: (extract_reconstruct_rows).
+_SCAN_QSTORE = os.environ.get("MSM_SCAN_QSTORE", "0") == "1"
+#: MSM_DMA_GATHER_MIN_ROWS: from this many gathered rows per window group
+#: the row-major path gathers on the row-gather kernel.  The JAX package's
+#: gate value, kept so the two paths split where they do there; its
 #: re-derivation on the H100 is queued in ROADMAP.md.
-_DMA_GATHER_MIN_ROWS = 1 << 21
+_DMA_GATHER_MIN_ROWS = int(os.environ.get("MSM_DMA_GATHER_MIN_ROWS", 1 << 21))
 
 #: Device memory per staged (window, point) entry of one window group that
 #: default_window_group budgets for.  The JAX package's value, kept so the
@@ -63,38 +107,75 @@ def build_full_table(coords: torch.Tensor) -> torch.Tensor:
     return build_table_doubled(coords)
 
 
+def build_prod_table(coords: torch.Tensor) -> torch.Tensor:
+    """The table of the configured layout: [2n, TWR] doubled rows, or
+    [n, TWR] single-table rows under _SINGLE_TABLE."""
+    return build_table(coords) if _SINGLE_TABLE else build_full_table(coords)
+
+
+def _sort_entries(keys: torch.Tensor, idxs: torch.Tensor):
+    """Per window, entries in (bucket key, ...) order: (keys_s, idxs_s)."""
+    if _SORT_I64:
+        # Both fields are non-negative and idx < 2^31, so int64 order is
+        # (key, idx) order and the low word unpacks exactly.
+        kv, _ = torch.sort((keys.to(torch.int64) << 32) | idxs.to(torch.int64), dim=1)
+        return (kv >> 32).to(torch.int32), (kv & 0xFFFFFFFF).to(torch.int32)
+    # Stable, as lax.sort: equal keys keep their order, so every bucket sums
+    # its points in the JAX package's order.
+    keys_s, perm = torch.sort(keys, dim=1, stable=True)
+    return keys_s, torch.gather(idxs, 1, perm)
+
+
+def _pret_rows(table: torch.Tensor, flat_pidx: torch.Tensor, nf: int) -> torch.Tensor:
+    """Gathered rows in the limb-major [NF//lblk, K, 64, lblk] layout: word i
+    of entry f*K + j at [f // lblk, j, i, f % lblk], lblk = LBLK halved until
+    it divides NF.  The permute is a copy of every row's first 64 words."""
+    lblk = LBLK
+    while nf % lblk:
+        lblk //= 2
+    rows = table[flat_pidx.to(torch.int64)]                          # [NF*K, TWR]
+    return rows.reshape(nf // lblk, lblk, K, TWR)[..., :64].permute(0, 2, 3, 1).contiguous()
+
+
 def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor, nb: int,
-                             table_base: int | None = None) -> torch.Tensor:
+                             table_base: int | None = None,
+                             fused: bool = False) -> torch.Tensor:
     """digits_g: [Wg, n] signed digits of one group of windows; table:
-    [2n, TWR] doubled rows (negations in rows n..2n-1).  Returns
-    [Wg * nb, TW] packed bucket sums: bucket key b holds the sum of the
-    points whose digit is +-(b+1), sign applied.
+    [2n, TWR] doubled rows (negations in rows n..2n-1), or [n, TWR]
+    single-table rows (no negations; the scan applies the digit signs).
+    Returns [Wg * nb, TW] packed bucket sums: bucket key b holds the sum of
+    the points whose digit is +-(b+1), sign applied.
 
     table_base selects the fixed-base block mode: the table is a single
-    table (no negations; the scan applies the digit signs) of any size and
-    entry i reads row table_base + i.  Entries padded past the table's end
-    (zero digits, so the sentinel bucket) read its last row, as the JAX
-    package's clamping gather does, and are never extracted."""
+    table of any size and entry i reads row table_base + i.  Entries padded
+    past the table's end (zero digits, so the sentinel bucket) read its last
+    row, as the JAX package's clamping gather does, and are never extracted.
+
+    fused=True runs the gather inside the scan (msm_scan_fused, doubled
+    table only).  The module's switches pick the other configurations."""
     wg, n = digits_g.shape
-    single = table_base is not None
-    if not single and table.shape[0] != 2 * n:
-        raise ValueError(f"table has {table.shape[0]} rows, expected {2 * n}")
+    if table_base is not None:
+        single = True
+    else:
+        single = table.shape[0] == n
+        if table.shape[0] not in (n, 2 * n):
+            raise ValueError(f"table has {table.shape[0]} rows, expected {n} (single) "
+                             f"or {2 * n} (doubled)")
+    if fused and single:
+        raise ValueError("fused=True needs the doubled table")
     if nb % 128:
         raise ValueError(f"nb={nb}: the pipeline needs c >= 8 (ROADMAP A.8)")
     dev = digits_g.device
     d = digits_g
     keys = torch.where(d == 0, nb, d.abs() - 1).to(torch.int32)      # [Wg, n]
     idx = torch.arange(n, dtype=torch.int32, device=dev)
-    if single:
+    if table_base is not None:
         idx = idx + table_base
     # Doubled table: the sign selects the negated half (row idx + n).
     # Single table: the sign rides payload bit 30 for the scan to apply.
     sbit = (1 << 30) if single else n
     idxs = torch.where(d < 0, idx + sbit, idx)
-    # Stable, as lax.sort: equal keys keep their order, so every bucket sums
-    # its points in the JAX package's order.
-    keys_s, perm = torch.sort(keys, dim=1, stable=True)
-    idxs_s = torch.gather(idxs, 1, perm)
+    keys_s, idxs_s = _sort_entries(keys, idxs)
 
     counts = bucket_counts(keys, nb)                                  # [Wg, nb]
     ends = torch.cumsum(counts, dim=1) - 1                            # int64
@@ -117,19 +198,37 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor, nb: in
 
     keys_t = flat_keys.reshape(nf, K).T                               # [K, NF]
     if single:
-        flat_neg = flat_pidx >> 30
+        bits_t = keys_to_sames(keys_t) | ((flat_pidx >> 30).reshape(nf, K).T << 1)
         flat_pidx = (flat_pidx & ((1 << 30) - 1)).clamp(max=table.shape[0] - 1)
-    if total >= _DMA_GATHER_MIN_ROWS:
-        rows = row_gather(table, flat_pidx.reshape(nf, K).T.contiguous())
+    quarter_rows = None                    # the scan input, kept by the quarter store
+    if fused:
+        pidx_t = flat_pidx.reshape(nf, K).T
+        t_scan = msm_scan_fused(table, pidx_t, keys_t)
+    elif _SCAN_LAYOUT == "rm":
+        if _DMA_GATHER and total >= _DMA_GATHER_MIN_ROWS:
+            rows = row_gather(table, flat_pidx.reshape(nf, K).T.contiguous())
+        else:
+            rows = table[flat_pidx.to(torch.int64)]
+        rows = rows.reshape(nf, K, TWR)
+        if single:
+            t_scan = msm_scan_rm_signed(rows, bits_t)
+        elif _SCAN_QSTORE:
+            t_scan = msm_scan_rm_sames_q(rows, keys_to_sames(keys_t))
+            quarter_rows = rows
+        else:
+            t_scan = msm_scan_rm_sames(rows, keys_to_sames(keys_t))
+        del rows
     else:
-        rows = table[flat_pidx.to(torch.int64)]
-    rows = rows.reshape(nf, K, TWR)
-    if single:
-        bits_t = keys_to_sames(keys_t) | (flat_neg.reshape(nf, K).T << 1)
-        t_scan = msm_scan_rm_signed(rows, bits_t)
-    else:
-        t_scan = msm_scan_rm_sames(rows, keys_to_sames(keys_t))
-    del rows
+        rows_t = _pret_rows(table, flat_pidx, nf)
+        if single:
+            t_scan = msm_scan_signed(rows_t, bits_t)
+        elif _SCAN_SAMES:
+            t_scan = msm_scan_sames(rows_t, keys_to_sames(keys_t))
+        else:
+            t_scan = msm_scan_pret(rows_t, keys_t)
+        del rows_t
+    # t_scan: [NF, K//2, 2*TW], step pairs side by side per row; under the
+    # quarter store [NF, K//4, 2*TW], steps (4i+2, 4i+3).
 
     # Carries across fragments; global keys keep runs inside their window.
     gk_frag = flat_gkeys.reshape(nf, K)
@@ -143,34 +242,66 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor, nb: in
     carries = seg_carry_scan(cont * one_key, b)                       # [NF, TW]
 
     # Extraction at bucket ends.
+    xgather = row_gather_flat if _DMA_EXTRACT else (lambda t, i: t[i])
     ends_c = ends.clamp(0, n - 1)
     wrow = torch.arange(wg, dtype=torch.int64, device=dev)[:, None]
     flat_end = (wrow * n + ends_c).reshape(-1)
     gfrag = (wrow * (n // K) + ends_c // K).reshape(-1)
-    cval = carries[gfrag]                                             # [Wg*nb, TW]
+    cval = xgather(carries, gfrag)                                    # [Wg*nb, TW]
     fragstart_key = torch.gather(keys_s, 1, (ends_c // K) * K)        # [Wg, nb]
     bucket_ids = torch.arange(nb, dtype=torch.int32, device=dev)[None]
     mask_c = ((fragstart_key == bucket_ids) & (counts > 0)).reshape(-1).to(torch.int32)
     nonzero = (counts > 0).reshape(-1)
-    # Entry e lives in pair row e//2, half e%2.
-    pair_rows = t_scan.reshape(nf * (K // 2), 2 * TW)[flat_end >> 1]
-    odd = (flat_end & 1) == 1
-    tval = torch.where(odd[:, None], pair_rows[:, TW:], pair_rows[:, :TW])
-    buckets = masked_add_rows(tval, cval, mask_c)
+    if quarter_rows is not None:
+        # Fragment-local step s = 4q + r.  r >= 2: stored (row q, half
+        # r - 2).  r < 2: start from the stored step 4q - 1 (row q - 1, odd
+        # half; a fragment's step 0 restarts, so row -1 is never read) and
+        # replay steps 4q .. s in the extraction kernel.
+        s = flat_end & (K - 1)
+        q = s >> 2
+        r = s & 3
+        direct = r >= 2
+        gq = (flat_end >> 6) * (K // 4) + q
+        stored = xgather(t_scan.reshape(nf * (K // 4), 2 * TW),
+                         torch.where(direct, gq, gq - 1).clamp(min=0))
+        use_odd = torch.where(direct, r - 2, 1)
+        base = torch.where((use_odd == 1)[:, None], stored[:, TW:], stored[:, :TW])
+        # The scan-input rows of steps 4q and 4q+1: one row pair.
+        fe0 = flat_end - r
+        pair_in = xgather(quarter_rows.reshape(nf * K // 2, 2 * TWR), fe0 >> 1)
+        del quarter_rows
+        k0 = flat_keys[fe0]
+        km1 = flat_keys[(fe0 - 1).clamp(min=0)]
+        k1 = flat_keys[(fe0 + 1).clamp(0, flat_keys.shape[0] - 1)]
+        same1 = (k0 == km1) & ((fe0 & (K - 1)) != 0)
+        same2 = k1 == k0
+        bits = ((r < 2).to(torch.int32)
+                | ((r == 1).to(torch.int32) << 1)
+                | (same1.to(torch.int32) << 2)
+                | (same2.to(torch.int32) << 3)
+                | (mask_c << 4))
+        buckets = extract_reconstruct_rows(base, pair_in, bits, cval)
+    else:
+        # Entry e lives in pair row e//2, half e%2.
+        pair_rows = xgather(t_scan.reshape(nf * (K // 2), 2 * TW), flat_end >> 1)
+        odd = (flat_end & 1) == 1
+        tval = torch.where(odd[:, None], pair_rows[:, TW:], pair_rows[:, :TW])
+        buckets = masked_add_rows(tval, cval, mask_c)
     return torch.where(nonzero[:, None], buckets, ident[None, :])
 
 
 def default_window_group(n: int, num_windows: int, device=None) -> int:
     """Largest divisor of num_windows whose per-group staging fits 85% of the
     device's memory next to the table."""
-    table_bytes = 2 * n * TWR * 4
+    tf = 1 if _SINGLE_TABLE else 2          # single or doubled table
+    table_bytes = tf * n * TWR * 4
     budget = int(0.85 * device_memory_bytes(device)) - table_bytes
     cap = max(1, budget // (n * _STAGING_BYTES_PER_ENTRY))
     return max(d for d in range(1, num_windows + 1) if num_windows % d == 0 and d <= cap)
 
 
 def _stage_table_digits(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig):
-    table = build_full_table(coords)
+    table = build_prod_table(coords)
     digits = decompose_scalars_signed(scalars, cfg)                   # [n, W]
     return table, digits.T                                            # [W, n]
 
@@ -224,9 +355,10 @@ def msm_window_sums(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig,
 
 
 def default_block_size(n: int, device=None) -> int:
-    """Largest power-of-two point block (>= 4096, <= n) whose doubled table
-    stays under 40% of device memory."""
-    cap_rows = int(0.4 * device_memory_bytes(device)) // (2 * TWR * 4)
+    """Largest power-of-two point block (>= 4096, <= n) whose table (doubled,
+    or single under _SINGLE_TABLE) stays under 40% of device memory."""
+    tf = 1 if _SINGLE_TABLE else 2
+    cap_rows = int(0.4 * device_memory_bytes(device)) // (tf * TWR * 4)
     b = 4096
     while b * 2 <= cap_rows and b * 2 <= n:
         b *= 2
