@@ -33,7 +33,13 @@ Phases (any failure raises and exits non-zero):
    default's; and the seven kernels of these configurations replayed as in
    4 (extract_reconstruct in chunks of PLAIN_ROWS rows; msm_scan, which no
    configuration runs, on the rows of the quarter-store run and the keys of
-   the pret run with the same bits off).
+   the pret run with the same bits off);
+8. the measurement probes of experiments/ (webgpu_msm_twisted_edwards_tpu_
+   torch/experiments/): each probe's main() at the JAX probe's default
+   shape, its launch counts from zero, then each of its kernels replayed on
+   the inputs of its largest call as in 4, on the part of the output that
+   it writes (the ablations that store one pair, copy-only's first step,
+   the partition's full tiles).
 
 It prints, on lines of their own before the last, the card line from
 nvidia-smi and one JSON object {"kernels": [...]}, and as its last line
@@ -43,11 +49,13 @@ nvidia-smi and one JSON object {"kernels": [...]}, and as its last line
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import statistics
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -304,6 +312,11 @@ def configs_path(n: int, want: dict, default_launches: dict) -> dict:
     return {"configs": out, "captures": captures, "launches": launches}
 
 
+#: Probe scans whose first argument holds one row per entry.
+PROBE_ROW_SCANS = {"scan_control", "scan_nosel", "scan_nowrite", "scan_hoistread", "scan_floor",
+                   "scan_dual", "scan_dualf", "scan_out64", "scan_out128", "gather_scan"}
+
+
 def cuda_ms(fn, reps: int) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -339,11 +352,32 @@ def work(name: str, args, out) -> tuple[int, int]:
         return moved, args[0].shape[0] * 4 * MONT
     if name in ("hist", "gather"):
         return moved, 0
+    if name in PROBE_ROW_SCANS:
+        # Rows [nf, K, TWR] (staged [K, nf, TWR]) of which each entry's 3L
+        # used words are read (only step 0's under a hoisted read); the
+        # written outputs; one madd an entry (dualf: 8 products).
+        rows = args[0]
+        entries = rows.shape[0] * rows.shape[1]
+        read = (rows.shape[0] if name in ("scan_hoistread", "scan_floor") else entries) * 3 * L * 4
+        return moved - nbytes(rows) + read, entries * (8 * MONT if name == "scan_dualf" else MADD)
+    if name in ("scan_dma", "gather_fused"):
+        # As scan_fused: the table's used words once, one madd an entry.
+        table, pidx_t = args[0], args[1]
+        return moved - nbytes(table) + table.shape[0] * 3 * L * 4, pidx_t.numel() * MADD
+    if name == "bulk_gather":
+        return moved, 0
+    if name == "gather_copy":
+        # The 64 words of each table row that the copy reads, the indices,
+        # the rows written.
+        table = args[0]
+        return moved - nbytes(table) + table.shape[0] * 64 * 4, 0
+    if name == "partition":
+        return moved, 0
     if name in ("scan", "scan_signed", "scan_keys", "scan_q"):
         # The scan reads the 3L words of each gathered row that madd uses.
         entries = args[0].shape[0] * args[0].shape[1]
         return moved - nbytes(args[0]) + entries * 3 * L * 4, entries * MADD
-    if name in ("scan_pret", "scan_pret_keys", "scan_pret_signed"):
+    if name in ("scan_pret", "scan_pret_keys", "scan_pret_signed", "scan_pret_dual"):
         # Limb-major rows: 3L of the 64 words of each entry are used.
         entries = args[0].numel() // 64
         return moved - nbytes(args[0]) + entries * 3 * L * 4, entries * MADD
@@ -390,13 +424,35 @@ def work(name: str, args, out) -> tuple[int, int]:
     raise KeyError(name)
 
 
+def lib_gather(table, pidx_t):
+    """index_select of the rows a gather kernel moves (its library call)."""
+    flat = pidx_t.T.reshape(-1).to(torch.int64)
+    return lambda: torch.index_select(table, 0, flat)
+
+
+class Spec(NamedTuple):
+    """A kernel of the kernels line: its name, the wrapper the path runs
+    (timed on the whole captured input), the wrapper held against the plain
+    version and that version, the source, the TPU kernel it replaces (body
+    line, or a probe's pallas_call line), the library call (or None), the
+    rows of each call of the plain version (None: one call on the whole
+    input), its capture and launch key (None: the name), and the part of its
+    output that it writes (None: all of it)."""
+
+    name: str
+    timed: Callable
+    checked: Callable
+    plain: Callable
+    src: str
+    replaces: str
+    library: Callable | None = None
+    chunk: int | None = None
+    key: str | None = None
+    region: Callable | None = None
+
+
 def kernel_specs() -> tuple[list, list, list]:
-    """(main path, fixed-base path, scan configurations) kernel specs: name,
-    the wrapper the path runs (timed on the whole captured input), the
-    wrapper held against the
-    plain version and that version, the source, the JAX kernel body it
-    replaces, the library call (or None), and the rows of each call of the
-    plain version (None: one call on the whole input)."""
+    """(main path, fixed-base path, scan configurations) kernel specs."""
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import bpr as B
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import convert as CV
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import ec as E
@@ -411,59 +467,55 @@ def kernel_specs() -> tuple[list, list, list]:
                 ).reshape(-1)
         return lambda: torch.bincount(flat, minlength=wg * (nb + 1))
 
-    def lib_gather(table, pidx_t):
-        flat = pidx_t.T.reshape(-1).to(torch.int64)
-        return lambda: torch.index_select(table, 0, flat)
-
-    def same(wrapper, plain, src, body, library=None, chunk=None):
-        return wrapper, wrapper, plain, src, body, library, chunk
+    def same(name, wrapper, plain, src, body, library=None, chunk=None):
+        return Spec(name, wrapper, wrapper, plain, src, JAX_PKG + body, library, chunk)
 
     main = [
-        ("convert", *same(CV.build_table_doubled, CV.build_table_doubled_plain, "convert.cu",
-                          "pallas/convert.py:116")),
-        ("hist", *same(H.bucket_counts, H.bucket_counts_plain, "hist.cu", "pallas/hist.py:36",
-                       lib_hist)),
-        ("gather", *same(G.row_gather, G.row_gather_plain, "gather.cu", "pallas/gather.py:48",
-                         lib_gather)),
-        ("scan", *same(S.msm_scan_rm_sames, S.msm_scan_rm_sames_plain, "scan.cu",
-                       "pallas/scan.py:337")),
-        ("ab_scan", *same(S.ab_scan_level, S.ab_scan_level_plain, "scan.cu",
-                          "pallas/scan.py:409")),
-        ("masked_add", *same(E.masked_add_rows, E.masked_add_rows_plain, "ec.cu",
-                             "pallas/ec.py:130")),
-        ("bpr1", *same(B.bpr_stage1, B.bpr_stage1_plain, "bpr.cu", "pallas/bpr.py:42")),
-        ("bpr2", *same(B.bpr_stage2, B.bpr_stage2_plain, "bpr.cu", "pallas/bpr.py:99")),
-        ("horner", *same(B.horner_fold, B.horner_fold_plain, "bpr.cu", "pallas/bpr.py:189")),
+        same("convert", CV.build_table_doubled, CV.build_table_doubled_plain, "convert.cu",
+             "pallas/convert.py:116"),
+        same("hist", H.bucket_counts, H.bucket_counts_plain, "hist.cu", "pallas/hist.py:36",
+             lib_hist),
+        same("gather", G.row_gather, G.row_gather_plain, "gather.cu", "pallas/gather.py:48",
+             lib_gather),
+        same("scan", S.msm_scan_rm_sames, S.msm_scan_rm_sames_plain, "scan.cu",
+             "pallas/scan.py:337"),
+        same("ab_scan", S.ab_scan_level, S.ab_scan_level_plain, "scan.cu",
+             "pallas/scan.py:409"),
+        same("masked_add", E.masked_add_rows, E.masked_add_rows_plain, "ec.cu",
+             "pallas/ec.py:130"),
+        same("bpr1", B.bpr_stage1, B.bpr_stage1_plain, "bpr.cu", "pallas/bpr.py:42"),
+        same("bpr2", B.bpr_stage2, B.bpr_stage2_plain, "bpr.cu", "pallas/bpr.py:99"),
+        same("horner", B.horner_fold, B.horner_fold_plain, "bpr.cu", "pallas/bpr.py:189"),
     ]
     fixed = [
         # The path runs build_table (no negation rows); both outputs of the
         # pair are held against the plain version, build_table's against the
         # pair's first.
-        ("convert_pair", CV.build_table, CV.build_table_pair, CV.build_table_pair_plain,
-         "convert.cu", "pallas/convert.py:41", None, PLAIN_ROWS),
-        ("scan_signed", *same(S.msm_scan_rm_signed, S.msm_scan_rm_signed_plain, "scan.cu",
-                              "pallas/scan.py:378")),
-        ("double_rows", *same(E.double_rows, E.double_rows_plain, "ec.cu", "pallas/ec.py:278",
-                              chunk=PLAIN_ROWS)),
-        ("normalize", *same(PK.normalize_rows, PK.normalize_rows_plain, "precompute.cu",
-                            "precompute.py:117", chunk=PLAIN_ROWS)),
+        Spec("convert_pair", CV.build_table, CV.build_table_pair, CV.build_table_pair_plain,
+             "convert.cu", JAX_PKG + "pallas/convert.py:41", None, PLAIN_ROWS),
+        same("scan_signed", S.msm_scan_rm_signed, S.msm_scan_rm_signed_plain, "scan.cu",
+             "pallas/scan.py:378"),
+        same("double_rows", E.double_rows, E.double_rows_plain, "ec.cu", "pallas/ec.py:278",
+             chunk=PLAIN_ROWS),
+        same("normalize", PK.normalize_rows, PK.normalize_rows_plain, "precompute.cu",
+             "precompute.py:117", chunk=PLAIN_ROWS),
     ]
     variants = [
-        ("scan_keys", *same(S.msm_scan, S.msm_scan_plain, "scan_variants.cu",
-                            "pallas/scan.py:62")),
-        ("scan_pret_keys", *same(S.msm_scan_pret, S.msm_scan_pret_plain, "scan_variants.cu",
-                                 "pallas/scan.py:265")),
-        ("scan_pret", *same(S.msm_scan_sames, S.msm_scan_sames_plain, "scan_variants.cu",
-                            "pallas/scan.py:284")),
-        ("scan_pret_signed", *same(S.msm_scan_signed, S.msm_scan_signed_plain,
-                                   "scan_variants.cu", "pallas/scan.py:314")),
-        ("scan_q", *same(S.msm_scan_rm_sames_q, S.msm_scan_rm_sames_q_plain, "scan_variants.cu",
-                         "pallas/scan.py:357")),
-        ("scan_fused", *same(S.msm_scan_fused, S.msm_scan_fused_plain, "scan_variants.cu",
-                             "pallas/scan.py:164")),
-        ("extract_reconstruct", *same(E.extract_reconstruct_rows,
-                                      E.extract_reconstruct_rows_plain, "ec.cu",
-                                      "pallas/ec.py:185", chunk=PLAIN_ROWS)),
+        same("scan_keys", S.msm_scan, S.msm_scan_plain, "scan_variants.cu",
+             "pallas/scan.py:62"),
+        same("scan_pret_keys", S.msm_scan_pret, S.msm_scan_pret_plain, "scan_variants.cu",
+             "pallas/scan.py:265"),
+        same("scan_pret", S.msm_scan_sames, S.msm_scan_sames_plain, "scan_variants.cu",
+             "pallas/scan.py:284"),
+        same("scan_pret_signed", S.msm_scan_signed, S.msm_scan_signed_plain,
+             "scan_variants.cu", "pallas/scan.py:314"),
+        same("scan_q", S.msm_scan_rm_sames_q, S.msm_scan_rm_sames_q_plain, "scan_variants.cu",
+             "pallas/scan.py:357"),
+        same("scan_fused", S.msm_scan_fused, S.msm_scan_fused_plain, "scan_variants.cu",
+             "pallas/scan.py:164"),
+        same("extract_reconstruct", E.extract_reconstruct_rows,
+             E.extract_reconstruct_rows_plain, "ec.cu",
+             "pallas/ec.py:185", chunk=PLAIN_ROWS),
     ]
     return main, fixed, variants
 
@@ -477,7 +529,7 @@ def max_err(name: str, got: tuple, ref: tuple) -> int:
 
 
 def kernels_phase(specs: list, captures: dict, launches: dict) -> list[dict]:
-    """Replay each kernel on its captured input: its whole output held bit
+    """Replay each kernel on its captured input: the output it writes held bit
     for bit against its plain version (a row-wise kernel's chunk by chunk),
     then timed beside it, the library call and the bound."""
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.convert import build_table_doubled_plain
@@ -488,11 +540,15 @@ def kernels_phase(specs: list, captures: dict, launches: dict) -> list[dict]:
     torch.cuda.synchronize()
     pkg = "webgpu_msm_twisted_edwards_tpu_torch/csrc/"
     rows = []
-    for name, timed, checked, plain, src, jax_kernel, library, chunk in specs:
-        args = captures[name][1]
+    for spec in specs:
+        name, timed, checked, plain = spec[:4]
+        chunk, key = spec.chunk, spec.key or name
+        args = captures[key][1]
         shapes = [tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args]
         out = checked(*args)
         got = out if isinstance(out, tuple) else (out,)
+        if spec.region:
+            got = tuple(spec.region(g, args) for g in got)
         n = args[0].shape[0]
         step = n if chunk is None else chunk
         err, plain_ms = 0, 0.0
@@ -509,6 +565,8 @@ def kernels_phase(specs: list, captures: dict, launches: dict) -> list[dict]:
             torch.cuda.synchronize()
             plain_ms += start.elapsed_time(end)
             ref = want if isinstance(want, tuple) else (want,)
+            if spec.region:
+                ref = tuple(spec.region(r, args) for r in ref)
             err = max(err, max_err(name, got if chunk is None
                                    else tuple(g[i:i + step] for g in got), ref))
             del want, ref
@@ -521,15 +579,17 @@ def kernels_phase(specs: list, captures: dict, launches: dict) -> list[dict]:
         del got, out
         out = timed(*args)
         ms = time_kernel(lambda: timed(*args))
-        library_ms = time_kernel(library(*args)) if library else None
-        moved, imads = work(name, args, out)
+        library_ms = time_kernel(spec.library(*args)) if spec.library else None
+        if spec.region:
+            out = tuple(spec.region(o, args) for o in (out if isinstance(out, tuple) else (out,)))
+        moved, imads = work(key, args, out)
         del out
         bound_bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
         bound_ops_ms = imads / PEAK_IMAD_PER_S * 1e3
         rows.append({
-            "name": name, "route": "cuda", "source": pkg + src,
-            "replaces": JAX_PKG + jax_kernel,
-            "launches": launches.get(name, 0), "max_abs_err": err,
+            "name": name, "route": "cuda", "source": pkg + spec.src,
+            "replaces": spec.replaces,
+            "launches": launches.get(key, 0), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
@@ -542,6 +602,102 @@ def kernels_phase(specs: list, captures: dict, launches: dict) -> list[dict]:
             f"{rows[-1]['bound_ms']:.4f} ms by {rows[-1]['bound_by']}) on {shapes}")
         torch.cuda.empty_cache()
     return rows
+
+
+def probe_specs() -> dict[str, list]:
+    """Phase 8: per probe module of experiments/, the specs of its kernels,
+    each of which its main() must launch; `replaces` is the JAX probe's
+    pallas_call line."""
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import dma_gather_probe as DP
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import fused_gather_probe as GP
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import partition_probe as PP
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_floor_probe as FP
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_out_probe as OP
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_tune_probe as TP
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import scan as S
+
+    def spec(name, wrapper, plain, src, site, key=None, region=None, library=None):
+        return Spec(name, wrapper, wrapper, plain, src, "experiments/" + site, library, None, key,
+                    region)
+
+    def floor(v):
+        flags = FP.VARIANTS[v]
+        return spec(f"scan_{v}", lambda r, s: FP.variant(r, s, *flags, control=v == "control"),
+                    lambda r, s: FP.variant_plain(r, s, *flags), "probe_scan.cu",
+                    "scan_floor_probe.py:99",
+                    region=lambda o, a: FP.defined(o, flags[1]))
+
+    def dual(name, fuse, pret):
+        return spec(name, lambda r, k: TP.msm_scan_dual(r, k, fuse, pret),
+                    lambda r, k: TP.msm_scan_dual_plain(r, k, fuse, pret), "probe_scan.cu",
+                    "scan_tune_probe.py:201")
+
+    def out(store):
+        return spec(f"scan_out{64 * store}", lambda r, k, g: OP.scan_out(r, k, g, store),
+                    lambda r, k, g: OP.scan_out_plain(r, k, g, store), "probe_scan.cu",
+                    "scan_out_probe.py:87")
+
+    return {
+        "scan_floor_probe": [
+            spec("scan (scan_floor_probe full)", S.msm_scan_rm_sames, S.msm_scan_rm_sames_plain,
+                 "scan.cu", "scan_floor_probe.py:99", key="scan"),
+            *(floor(v) for v in ("control", "nosel", "nowrite", "hoistread", "floor"))],
+        "scan_tune_probe": [
+            spec("scan_pret_keys (scan_tune_probe pret)", S.msm_scan_pret,
+                 S.msm_scan_pret_plain, "scan_variants.cu", "scan_tune_probe.py:93",
+                 key="scan_pret_keys"),
+            dual("scan_dual", False, False), dual("scan_dualf", True, False),
+            dual("scan_pret_dual", False, True),
+            spec("scan_pret (scan_tune_probe sames)", S.msm_scan_sames, S.msm_scan_sames_plain,
+                 "scan_variants.cu", "scan_tune_probe.py:266", key="scan_pret")],
+        "scan_out_probe": [out(1), out(2)],
+        "dma_gather_probe": [
+            spec("bulk_gather", DP.dma_gather, DP.dma_gather_plain, "probe_move.cu",
+                 "dma_gather_probe.py:108", library=lib_gather),
+            spec("scan_dma", DP.msm_scan_dma, DP.msm_scan_dma_plain, "probe_move.cu",
+                 "dma_gather_probe.py:193")],
+        "fused_gather_probe": [
+            spec("gather_copy", GP.gather_copy, GP.gather_copy_plain, "probe_move.cu",
+                 "fused_gather_probe.py:100", region=lambda o, a: o[:, 0]),
+            spec("gather_scan", GP.gather_scan, GP.gather_scan_plain, "probe_move.cu",
+                 "fused_gather_probe.py:100"),
+            spec("gather_fused", GP.gather_fused, GP.gather_fused_plain, "probe_move.cu",
+                 "fused_gather_probe.py:100")],
+        "partition_probe": [
+            spec("partition", PP.partition, lambda r, b, nb, t: PP.partition_plain(r, b, nb),
+                 "probe_move.cu", "partition_probe.py:125",
+                 region=lambda o, a: o[PP.written(a[1], a[2])])],
+    }
+
+
+def probes_path() -> dict:
+    """Drive each probe's main() at its defaults, its launch counts started
+    from zero, then replay its kernels (kernels_phase).  Returns what each
+    main() returned with its launches and seconds, and the kernels' rows."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+
+    out, kernels = {}, []
+    for probe, specs in probe_specs().items():
+        mod = importlib.import_module(f"webgpu_msm_twisted_edwards_tpu_torch.experiments.{probe}")
+        _build.captures = {}
+        _build.reset_launch_counts()
+        t0 = time.time()
+        try:
+            res = mod.main([])
+            torch.cuda.synchronize()
+            ran = dict(_build.launches)
+            captures = _build.captures
+        finally:
+            _build.captures = None
+        missing = [s.key or s.name for s in specs if ran.get(s.key or s.name, 0) < 1]
+        if missing:
+            raise AssertionError(f"{probe}: {missing} not launched; launches {ran}")
+        out[probe] = {"results": res, "launches": ran, "s": time.time() - t0}
+        log(f"probe {probe}: {out[probe]['s']:.1f} s, launches {ran}")
+        kernels += kernels_phase(specs, captures, ran)
+        del captures
+        torch.cuda.empty_cache()
+    return {"probes": out, "kernels": kernels}
 
 
 def main() -> int:
@@ -599,10 +755,17 @@ def main() -> int:
     cf["phase_s"] = time.time() - t_cf
     log(f"scan configurations phase with its kernel replay: {cf['phase_s']:.1f} s")
 
+    t_pr = time.time()
+    pr = probes_path()
+    kernels += pr.pop("kernels")
+    pr["phase_s"] = time.time() - t_pr
+    log(f"probes phase with its kernel replay: {pr['phase_s']:.1f} s")
+
     log(json.dumps({"e2e": {k: {"median_ms": v["median_ms"], "runs_ms": v["runs_ms"],
                                 "first_ms": v["first_ms"], "launches": v["launches"],
                                 "oracle": v["oracle"]} for k, v in e2e.items()},
-                    "fixed_base_2^20": fb, "configs_2^20": cf, "build_s": build_s,
+                    "fixed_base_2^20": fb, "configs_2^20": cf, "probes": pr["probes"],
+                    "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -365,3 +365,112 @@ def test_fused_bucket_rows_match_default(dev):
     digits[1, :2000] = 5                                     # a run over many fragments
     assert _same(MP.window_group_bucket_sums(table, digits, nb, fused=True),
                  MP.window_group_bucket_sums(table, digits, nb))
+
+
+# ---------------------------------------------------------------------------
+# The kernels of the measurement probes (webgpu_msm_twisted_edwards_tpu_torch/
+# experiments/), on random 13-bit rows as the probes feed them.
+
+
+def _rand(rng, shape, high, dev):
+    return torch.from_numpy(rng.integers(0, high, size=shape).astype(np.int32)).to(dev)
+
+
+def _probe_scan_inputs(seed, dev, nf=300):
+    """Rows [nf, K, TWR], sorted keys [K, nf] in runs, same bits, signs."""
+    rng = np.random.default_rng(seed)
+    rows = _rand(rng, (nf, S.K, S.TWR), 1 << 13, dev)
+    keys = _rand(rng, (S.K, nf), 9, dev).sort(dim=0).values
+    return rng, rows, keys, S.keys_to_sames(keys), _rand(rng, (S.K, nf), 2, dev)
+
+
+@pytest.mark.parametrize("store", [1, 2])
+def test_probe_scan_out(dev, store):
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_out_probe as OP
+
+    _, rows, keys, _, sgn = _probe_scan_inputs(30, dev)
+    assert _same(OP.scan_out(rows, keys, sgn, store), OP.scan_out_plain(rows, keys, sgn, store))
+
+
+@pytest.mark.parametrize("name", ["control", "nosel", "nowrite", "hoistread", "floor"])
+def test_probe_scan_floor_variants(dev, name):
+    """The control and each ablation on the outputs it writes (pair 31 of
+    nowrite and floor)."""
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_floor_probe as FP
+
+    _, rows, _, sames, _ = _probe_scan_inputs(31, dev)
+    flags = FP.VARIANTS[name]
+    _build.reset_launch_counts()
+    got = FP.variant(rows, sames, *flags, control=name == "control")
+    assert _build.launches[f"scan_{name}"] == 1
+    assert _same(FP.defined(got, flags[1]), FP.defined(FP.variant_plain(rows, sames, *flags),
+                                                       flags[1]))
+
+
+@pytest.mark.parametrize("fuse,pret", [(False, False), (True, False), (False, True)],
+                         ids=["dual", "dualf", "pret_dual"])
+def test_probe_scan_dual(dev, fuse, pret):
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_tune_probe as TP
+
+    _, rows, keys, _, _ = _probe_scan_inputs(32, dev, nf=512)
+    if pret:
+        rows = TP.pre_transpose(rows, 64)
+    got = TP.msm_scan_dual(rows, keys, fuse=fuse, pret=pret)
+    assert _same(got, TP.msm_scan_dual_plain(rows, keys, fuse=fuse, pret=pret))
+
+
+def test_probe_bulk_gather(dev):
+    """The bulk-copy gather equals its plain version and the pipeline's
+    gather kernel on the same indices."""
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import dma_gather_probe as DP
+
+    rng = np.random.default_rng(33)
+    table = _rand(rng, (5000, S.TWR), 1 << 31, dev)
+    pidx_t = _rand(rng, (S.K, 700), 5000, dev)
+    got = DP.dma_gather(table, pidx_t)
+    assert _same(got, DP.dma_gather_plain(table, pidx_t))
+    assert _same(got, G.row_gather(table, pidx_t))
+
+
+def test_probe_scan_dma(dev):
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import dma_gather_probe as DP
+
+    rng, _, _, sames, _ = _probe_scan_inputs(34, dev)
+    table = _rand(rng, (4096, S.TWR), 1 << 13, dev)
+    pidx_t = _rand(rng, (S.K, 300), 4096, dev)
+    got = DP.msm_scan_dma(table, pidx_t, sames)
+    assert _same(got, DP.msm_scan_dma_plain(table, pidx_t, sames))
+    rows = G.row_gather(table, pidx_t).reshape(300, S.K, S.TWR)
+    assert _same(got, S.msm_scan_rm_sames(rows, sames))
+
+
+def test_probe_fused_gather(dev):
+    """Copy-only on the rows it writes, scan-only and fused on everything;
+    300 fragments leave the last block of 32 partly empty."""
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import fused_gather_probe as GP
+
+    rng, _, keys, _, sgn = _probe_scan_inputs(35, dev)
+    table = _rand(rng, (2048, S.TWR), 1 << 13, dev)
+    pidx_t = _rand(rng, (S.K, 300), 2048, dev)
+    assert _same(GP.gather_copy(table, pidx_t)[:, 0], GP.gather_copy_plain(table, pidx_t)[:, 0])
+    fused = GP.gather_fused(table, pidx_t, keys, sgn)
+    assert _same(fused, GP.gather_fused_plain(table, pidx_t, keys, sgn))
+    assert _same(GP.gather_scan(GP.stage_rows(table, pidx_t), keys, sgn), fused)
+
+
+@pytest.mark.parametrize("n,nbins,tblk", [(1 << 16, 64, 4096), (10000, 4, 512), (3000, 7, 32)])
+def test_probe_partition(dev, n, nbins, tblk):
+    """The written rows (full tiles within cap) equal the stable sort's; a
+    last block of fewer than tblk rows, bins that are not a power of two,
+    rows whose bin is out of range."""
+    from webgpu_msm_twisted_edwards_tpu_torch.experiments import partition_probe as PP
+
+    rng = np.random.default_rng(36)
+    rows = _rand(rng, (n, 128), 1 << 31, dev)
+    bins = _rand(rng, (n,), nbins, dev)
+    bins[::97] = nbins          # out of range: such a row goes nowhere
+    bins[5::101] = -1
+    mask = PP.written(bins, nbins)
+    assert mask.any()
+    assert _same(PP.partition(rows, bins, nbins, tblk)[mask], PP.partition_plain(rows, bins,
+                                                                               nbins)[mask])

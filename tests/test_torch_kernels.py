@@ -19,6 +19,7 @@ from webgpu_msm_twisted_edwards_tpu.ops.pallas import gather as JG
 from webgpu_msm_twisted_edwards_tpu.ops.pallas import hist as JH
 from webgpu_msm_twisted_edwards_tpu.ops.pallas import scan as JS
 from webgpu_msm_twisted_edwards_tpu_torch.cpu.curve import GENERATOR
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import bpr as B
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import convert as CV
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import ec as E
@@ -165,3 +166,12 @@ def test_horner_fold_identity_padding():
     sums = _point_rows(20, 13)
     want = JB.horner_fold(jnp.asarray(sums), 13, interpret=True)
     _eq(want, B.horner_fold(from_numpy_u32(sums), 13))
+
+
+def test_library_hash_covers_the_headers_it_includes():
+    """A library's name hashes its source and the headers that source
+    includes, so an edit to the probes' header rebuilds only the probes."""
+    assert set(_build._sources("scan")) == {"scan.cu", "scan.cuh", "ec.cuh", "field.cuh"}
+    assert "probe_scan.cuh" not in _build._sources("scan_variants")
+    assert {"probe_scan.cuh", "scan.cuh"} <= set(_build._sources("probe_move"))
+    assert _build._sources("hist") == ["hist.cu"]

@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into its own shared
 library with a plain C interface, loaded with ctypes.  Libraries go into
 `build/` beside this package (git-ignored) under a name carrying a hash of
-the sources and flags, so an edited source is rebuilt at its next use.  The
-first use builds every missing library at once, one nvcc process per source,
-all running in parallel.
+its source, the headers that source includes, and the flags, so an edited
+source is rebuilt at its next use.  The first use builds every missing
+library at once, one nvcc process per source, all running in parallel.
 
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError(); :func:`launch` raises if that is not 0 and counts the
@@ -19,6 +19,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,8 +31,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-#: Sources, one library each.
-SOURCES = ("convert", "hist", "gather", "scan", "scan_variants", "ec", "bpr", "precompute")
+#: Sources, one library each (probe_*: the kernels of experiments/).
+SOURCES = ("convert", "hist", "gather", "scan", "scan_variants", "ec", "bpr", "precompute",
+           "probe_scan", "probe_move")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -68,11 +70,23 @@ def _nvcc() -> str:
     return exe
 
 
+def _sources(name: str) -> list[str]:
+    """`csrc/<name>.cu` and the csrc headers it includes, directly or not."""
+    todo, seen = [f"{name}.cu"], []
+    while todo:
+        src = todo.pop()
+        if src in seen:
+            continue
+        seen.append(src)
+        with open(os.path.join(SRC_DIR, src)) as f:
+            todo += re.findall(r'^#include "([^"]+)"', f.read(), re.M)
+    return seen
+
+
 def _lib_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [os.path.join(SRC_DIR, f"{name}.cu")] + sorted(
-            glob.glob(os.path.join(SRC_DIR, "*.cuh"))):
-        with open(path, "rb") as f:
+    for src in _sources(name):
+        with open(os.path.join(SRC_DIR, src), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -48,26 +48,39 @@ def keys_to_sames(keys_t: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(eq[:1]), eq])
 
 
-def _scan_plain(read_rows, aux_t: torch.Tensor, mask: str, store: int = 2) -> torch.Tensor:
+def _scan_plain(read_rows, aux_t: torch.Tensor, mask: str, store: int = 2,
+                sgn_t: torch.Tensor | None = None, sel: bool = True, write: bool = True,
+                perstep_read: bool = True, add=madd) -> torch.Tensor:
     """The scan recurrence of the JAX package's _msm_scan_body.
     read_rows(j) -> [3L, NF] int64 limb slab of step j's table rows; aux_t
     [K, NF] int32 step words, read by `mask`: "keys" compares sorted keys
     with the previous step's (-1 before step 0), "sames" takes the hoisted
-    bit, "signed" bit 0 as the same bit and bit 1 as the digit's sign.
-    store=2 keeps every step, store=4 steps 4i+2 and 4i+3; returns
-    [NF, K//store, 2*TW] int32, two steps side by side per row."""
+    bit, "signed" bit 0 as the same bit and bit 1 as the digit's sign,
+    "keys_sgn" compares keys and negates y-x and 2*d*t (4p - v, no swap) of
+    an entry whose sgn_t [K, NF] word is not 0.  store=1 keeps every step in
+    its own row ([NF, K, TW]), store=2 every step, two side by side per row,
+    store=4 steps 4i+2 and 4i+3 ([NF, K//store, 2*TW]).  The ablations of
+    experiments/scan_floor_probe.py: sel=False drops the segment select,
+    write=False keeps only the last pair (the other rows are zero),
+    perstep_read=False reads step 0's rows at every step.  `add` is the
+    mixed add (ec.py::madd)."""
     nf = aux_t.shape[1]
     c = load_consts(aux_t.device)
     ident = pt_identity(nf, c)
     acc = ident
     kprev = torch.full((nf,), -1, dtype=aux_t.dtype, device=aux_t.device)
+    slab0 = None if perstep_read else read_rows(0)
     steps = []
     for j in range(K):
-        slab = read_rows(j)
+        slab = read_rows(j) if perstep_read else slab0
         d2, s2, td2 = slab[0:L], slab[L:2 * L], slab[2 * L:3 * L]
         aux = aux_t[j]
-        if mask == "keys":
+        if mask in ("keys", "keys_sgn"):
             same, kprev = aux == kprev, aux
+            if mask == "keys_sgn":
+                neg = sgn_t[j] != 0
+                d2 = torch.where(neg, fr_neg_lazy(d2, c), d2)
+                td2 = torch.where(neg, fr_neg_lazy(td2, c), td2)
         elif mask == "sames":
             same = aux != 0
         else:
@@ -75,10 +88,12 @@ def _scan_plain(read_rows, aux_t: torch.Tensor, mask: str, store: int = 2) -> to
             d2, s2 = torch.where(neg, s2, d2), torch.where(neg, d2, s2)
             td2 = torch.where(neg, fr_neg_lazy(td2, c), td2)
             same = (aux & 1) != 0
-        acc = madd(pt_select(same, acc, ident), d2, s2, td2, c)
-        if store == 2 or j % 4 >= 2:
-            steps.append(pt_to_rows(acc))
-    return torch.stack(steps, dim=1).reshape(nf, K // store, 2 * TW)
+        acc = add(pt_select(same, acc, ident) if sel else acc, d2, s2, td2, c)
+        if store <= 2 or j % 4 >= 2:
+            steps.append(pt_to_rows(acc) if write or j >= K - 2 else None)
+    if not write:
+        steps = [torch.zeros_like(steps[-1]) if s is None else s for s in steps]
+    return torch.stack(steps, dim=1).reshape(nf, -1, TW if store == 1 else 2 * TW)
 
 
 def _rm_reader(rows: torch.Tensor):
