@@ -5,8 +5,10 @@
 
 Phases (any failure raises and exits non-zero):
 1. the card's name and power limit, the torch and CUDA versions;
-2. build of every kernel from csrc/ (nvcc, in parallel), its seconds, and
-   each kernel function's registers and spills;
+2. build of every kernel from csrc/ (nvcc, in parallel), its seconds,
+   each kernel function's registers and spills, and the IMAD.WIDE.U32
+   count of the main path's scan (cuobjdump -sass), from which MONT is
+   taken;
 3. the main path: compute_msm at 2^16 points (c=13, plain-index gather) and
    at 2^20 points (c=16, gather kernel) on inputs resident on the card (points
    from the native oracle's generator, scalars from a seeded numpy
@@ -52,7 +54,9 @@ import dataclasses
 import importlib
 import json
 import os
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 from typing import Callable, NamedTuple
@@ -68,9 +72,14 @@ import torch
 #: those 128 FMAs for compute capability 9.0, so a quarter of it.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_IMAD_PER_S = 67e12 / 4
-#: 32-bit multiply-adds of one Montgomery product: 20 rounds of
-#: (x_i*y_0, N0*t, 20 x_i*y_j, 20 q_i*p_j).
-MONT = 20 * 42
+#: 32-bit multiply-adds of one Montgomery product, the fewest a kernel of
+#: the port issues: the scans' product in 26-bit digits (csrc/field26.cuh)
+#: is 190 IMAD.WIDE.U32 (100 x_i*y_j and 90 q*p_j; p's low digit is 1 and
+#: the quotient digit is a negation), each counted as two 32-bit
+#: multiply-adds; phase 2 prints the count in the compiled scan.  (The
+#: 13-bit product of csrc/field.cuh, which the other kernels keep, is
+#: 20 * 42 = 840.)
+MONT = 2 * 190
 MADD, FULL_ADD, DOUBLE = 7 * MONT, 9 * MONT, 8 * MONT
 
 RUNS = 5
@@ -83,6 +92,19 @@ JAX_PKG = "webgpu_msm_twisted_edwards_tpu/ops/"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sass_count(lib: str, kernel: str, opcode: str) -> int | None:
+    """Instructions of one opcode in a kernel of a built library (cuobjdump
+    -sass); None where the toolkit has no cuobjdump."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", "-fun", kernel, _build._lib_path(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(1 for ln in sass.splitlines() if f" {opcode} " in ln)
 
 
 def card_inputs(n: int):
@@ -718,6 +740,12 @@ def main() -> int:
     for lib, lines in _build.ptxas_report().items():
         for ln in lines:
             log(f"ptxas {lib}: {ln}")
+    # The main path's scan, msm_scan_rm_sames: one step of its loop is one
+    # madd, 7 products.
+    wide = sass_count("scan", "_ZN3msm11scan_kernelILi0ELi1ELi2EEEvPKjPKiS4_Pjxx",
+                      "IMAD.WIDE.U32")
+    log(f"sass scan (msm_scan_rm_sames): {wide} IMAD.WIDE.U32, "
+        f"{'not counted' if wide is None else round(wide / 7, 1)} a product; MONT = {MONT}")
     main_specs, fixed_specs, variant_specs = kernel_specs()
 
     e2e = {}

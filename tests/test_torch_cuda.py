@@ -67,14 +67,39 @@ def test_convert(dev):
     assert _same(CV.build_table_doubled(coords), CV.build_table_doubled_plain(coords))
 
 
-def test_hist(dev):
+@pytest.mark.parametrize("nb,case", [(2048, "mixed"), (70000, "mixed")] + [
+    (nb, case) for nb in (4096, 32768)
+    for case in ("one bucket", "sentinel", "sorted", "top bucket")])
+def test_hist(dev, nb, case):
+    """The shared-memory histogram against its plain version.  A mixed key
+    set, also at more buckets than a block holds (three ranges of 23334);
+    at the pipeline's bucket counts, key sets that stress it, with
+    window counts that split the card's SMs unevenly (3: several clusters a
+    window, atomics into zeroed counts; 17: one cluster a window, plain
+    stores), an odd key count, and the keys both contiguous and as the
+    pipeline holds them (the transpose of [n, Wg])."""
     rng = np.random.default_rng(2)
-    nb = 2048
-    keys = rng.integers(0, nb + 1, size=(3, 4096)).astype(np.int32)
-    keys[0, :1000] = 7
-    keys[1, :] = nb
-    k = torch.from_numpy(keys).to(dev)
-    assert _same(H.bucket_counts(k, nb), H.bucket_counts_plain(k, nb))
+    if case == "mixed":
+        keys = rng.integers(0, nb + 1, size=(3, 4096)).astype(np.int32)
+        keys[0, :1000] = 7
+        keys[1, :] = nb
+        k = torch.from_numpy(keys).to(dev)
+        assert _same(H.bucket_counts(k, nb), H.bucket_counts_plain(k, nb))
+        return
+    for wg in (3, 17):
+        n = 100003
+        if case == "one bucket":
+            keys = np.full((wg, n), nb // 3)
+        elif case == "sentinel":
+            keys = np.full((wg, n), nb)
+        elif case == "sorted":
+            keys = np.sort(rng.integers(0, nb + 1, size=(wg, n)), axis=1)
+        else:
+            keys = np.full((wg, n), nb - 1)
+        k = torch.from_numpy(keys.astype(np.int32)).to(dev)
+        want = H.bucket_counts_plain(k, nb)
+        assert _same(H.bucket_counts(k, nb), want), wg
+        assert _same(H.bucket_counts(k.T.contiguous().T, nb), want), wg
 
 
 def test_gather(dev):
@@ -85,14 +110,45 @@ def test_gather(dev):
     assert _same(G.row_gather(table, pidx_t), G.row_gather_plain(table, pidx_t))
 
 
-def test_scan(dev):
-    rng = np.random.default_rng(4)
-    table = CV.build_table_doubled_plain(_coords(rng, 64, dev))
-    nf = 256
-    pidx = torch.from_numpy(rng.integers(0, 128, size=nf * S.K)).to(dev)
+def _near_p_coords(rng, n, dev):
+    """[n, 2, 8] affine words of coordinates within 4 of p - 1."""
+    words = [[(PARAMS.p - 1 - int(rng.integers(0, 4))) >> (32 * j) & 0xFFFFFFFF for j in range(8)]
+             for _ in range(2 * n)]
+    return from_numpy_u32(np.array(words, dtype=np.uint32).reshape(n, 2, 8), dev)
+
+
+def _rm_scan_inputs(rng, case, signed, dev):
+    """(rows, aux_t) of a row-major scan: rows gathered from a table of 64
+    points (the doubled table, or the single one for the signed scan), aux_t
+    the same bits of sorted keys, and for the signed scan the sign bits.
+    The cases beside "random" stress the template's warp stores and 26-bit
+    madd: 300 fragments (not a multiple of the 64-thread block, nor of a
+    warp), the whole fragment one segment, every step its own segment, every
+    entry negated, and points whose coordinates are near p - 1."""
+    nf = 300 if case == "ragged nf" else 256
+    coords = _near_p_coords(rng, 64, dev) if case == "near p" else _coords(rng, 64, dev)
+    table = (CV.build_table_pair_plain(coords)[0] if signed
+             else CV.build_table_doubled_plain(coords))
+    pidx = torch.from_numpy(rng.integers(0, table.shape[0], size=nf * S.K)).to(dev)
     rows = table[pidx].reshape(nf, S.K, S.TWR)
-    keys = np.sort(rng.integers(0, 9, size=(S.K, nf)), axis=0).astype(np.int32)
-    sames = S.keys_to_sames(torch.from_numpy(keys).to(dev))
+    keys = np.sort(rng.integers(0, 9, size=(S.K, nf)), axis=0)
+    if case == "one segment":
+        keys[:] = 3
+    elif case == "segments of one":
+        keys = np.broadcast_to(np.arange(S.K)[:, None], (S.K, nf))
+    aux = S.keys_to_sames(torch.from_numpy(keys.astype(np.int32)).to(dev))
+    if signed:
+        sign = np.ones((S.K, nf)) if case == "every sign" else rng.integers(0, 2, size=(S.K, nf))
+        aux = aux | (torch.from_numpy(sign.astype(np.int32)).to(dev) << 1)
+    return rows, aux
+
+
+SCAN_CASES = ["random", "ragged nf", "one segment", "segments of one", "near p"]
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan(dev, case):
+    rows, sames = _rm_scan_inputs(np.random.default_rng(4), case, False, dev)
     assert _same(S.msm_scan_rm_sames(rows, sames), S.msm_scan_rm_sames_plain(rows, sames))
 
 
@@ -169,15 +225,9 @@ def test_normalize_rows(dev):
     assert _same(PK.normalize_rows(rows), PK.normalize_rows_plain(rows))
 
 
-def test_scan_signed(dev):
-    rng = np.random.default_rng(13)
-    table = CV.build_table_pair_plain(_coords(rng, 64, dev))[0]
-    nf = 256
-    pidx = torch.from_numpy(rng.integers(0, 64, size=nf * S.K)).to(dev)
-    rows = table[pidx].reshape(nf, S.K, S.TWR)
-    keys = np.sort(rng.integers(0, 9, size=(S.K, nf)), axis=0).astype(np.int32)
-    sign = torch.from_numpy(rng.integers(0, 2, size=(S.K, nf)).astype(np.int32)).to(dev)
-    bits = S.keys_to_sames(torch.from_numpy(keys).to(dev)) | (sign << 1)
+@pytest.mark.parametrize("case", SCAN_CASES + ["every sign"])
+def test_scan_signed(dev, case):
+    rows, bits = _rm_scan_inputs(np.random.default_rng(13), case, True, dev)
     assert _same(S.msm_scan_rm_signed(rows, bits), S.msm_scan_rm_signed_plain(rows, bits))
 
 

@@ -87,6 +87,45 @@ def test_cuda_header_constants_match_consts_array():
     assert int(re.search(r"#define MSM_N0 (0x[0-9A-Fa-f]+)u", src).group(1), 16) == TP.PARAMS.n0
 
 
+def test_field26_header_constants_match_common():
+    """csrc/field26.cuh spells out the 26-bit digit constants of the scans'
+    madd: p, R mod p, 4p in headroom form, and N0' = -p^-1 mod 2^26."""
+    path = os.path.join(os.path.dirname(TC.__file__), "..", "..", "csrc", "field26.cuh")
+    src = open(path).read()
+    want = TC.make_digit_consts()
+    for fn, key in (("d_p", "p"), ("d_r", "r"), ("d_q4", "q4")):
+        body = re.search(fn + r"\(int i\) \{\s*constexpr uint32_t v\[MSM_LD\] = \{([^}]*)\}",
+                         src).group(1)
+        assert [int(v, 16) for v in body.replace(",", " ").split()] == want[key], fn
+    assert int(re.search(r"#define MSM_N0D (0x[0-9A-Fa-f]+)u", src).group(1), 16) == want["n0"]
+    assert want["p"][0] == 1 and want["n0"] == (1 << 26) - 1      # so q = -t mod 2^26
+
+
+def _extreme_operands(rng, case: str):
+    """(x, y) limbs for test_mont_mul_at_extremes: one operand at an extreme
+    value (all B lanes), the other random below 9p; or x = y."""
+    y = _limbs(rng, 9 * P)
+    if case == "x=y":
+        return y, y.copy()
+    if case == "under 9p":
+        vals = [9 * P - 1 - int(rng.integers(0, 1 << 20)) for _ in range(B)]
+        return np.stack([TC.int_to_limbs(v) for v in vals], axis=1), y
+    v = {"0": 0, "1": 1, "p-1": P - 1}[case]
+    return np.repeat(TC.int_to_limbs(v)[:, None], B, axis=1), y
+
+
+@pytest.mark.parametrize("reduce", [True, False])
+@pytest.mark.parametrize("case", ["0", "1", "p-1", "under 9p", "x=y"])
+def test_mont_mul_at_extremes(consts, case, reduce):
+    """The 26-bit-digit product (the plain version, and the scans' field26.cuh)
+    against the JAX 13-bit mont_mul at the ends of the lazy input range."""
+    jc, tc = consts
+    x, y = _extreme_operands(np.random.default_rng(5), case)
+    for a, b in ((x, y), (y, x)):
+        assert _same(JC.mont_mul(jnp.asarray(a), jnp.asarray(b), jc.p, reduce=reduce),
+                     TC.mont_mul(_t(a), _t(b), tc.p, reduce=reduce))
+
+
 @pytest.mark.parametrize("reduce", [True, False])
 def test_mont_mul(consts, reduce):
     jc, tc = consts

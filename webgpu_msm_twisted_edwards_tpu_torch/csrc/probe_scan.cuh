@@ -31,6 +31,7 @@
 
 #include <cuda_runtime.h>
 
+#include "ec.cuh"
 #include "scan.cuh"
 
 namespace msm {

@@ -2,6 +2,7 @@
 // fragments.
 #include <cuda_runtime.h>
 
+#include "ec.cuh"
 #include "scan.cuh"
 
 namespace msm {

@@ -25,56 +25,187 @@
 // - STORE, the steps stored: 2 stores every step, out[f, j/2, (j%2)*64 ..];
 //   4 stores only steps 4i+2 and 4i+3, out[f, i, ..] ([nf, 16, 128]).
 //
-// Bound on the H100: operations (7 Montgomery products, about 5.9 K 32-bit
-// multiply-adds, per entry against 244 bytes read and 256 written, 128 with
-// STORE 4).
+// Bound on the H100: operations (7 Montgomery products per entry against
+// 244 bytes read and 256 written, 128 with STORE 4).
 // Design: one thread per fragment, the accumulator in registers for all 64
-// steps.  Row-major and table rows are read with 16-byte loads of their 60
+// steps, in the 26-bit digits of csrc/field26.cuh from the row loads to the
+// stores: the madd (madd26 below) is inlined into the loop, with no call
+// and no stack frame, and a product is 190 wide multiply-adds against the
+// 13-bit form's 840 32-bit ones (field26.cuh says why the words are the
+// same).  Row-major and table rows are read with 16-byte loads of their 60
 // used words (one row per thread, so a warp's loads are 32 rows apart); the
 // limb-major layout gives 4-byte loads in which a warp's 32 threads read 32
-// neighbouring words.  Stores are 16 bytes.  Every offset is 64-bit: the
-// rows and the output pass 2^31 words at 2^20 points.
+// neighbouring words.  A step's output row goes through shared memory: each
+// thread writes its 40 packed words into its slot of its warp's staging
+// buffer, then the warp writes two whole 256-byte rows (the 24 zero words
+// included) with each 16-byte store instruction, neighbouring lanes on
+// neighbouring words.  The last warp's lanes past nf recompute fragment
+// nf - 1 and store nothing.  Every offset is 64-bit: the rows and the
+// output pass 2^31 words at 2^20 points.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "ec.cuh"
+#include "field26.cuh"
 
 namespace msm {
 
 enum ScanRows { ROWS_RM = 0, ROWS_PRET = 1, ROWS_TABLE = 2 };
 enum ScanMask { MASK_KEYS = 0, MASK_SAMES = 1, MASK_SIGNED = 2 };
 
+// Two warps a block and at least 8 blocks a SM: ptxas then gives each
+// thread 128 registers (16 warps a SM).  On an H100 this ran the main path's
+// scan faster than 128-thread blocks at 3 or 4 blocks a SM (which ptxas
+// held to about 110 registers, also 16 warps) and as fast as one-warp
+// blocks at 16 a SM.  Five of the eight instantiations spill 4-40 bytes at
+// this bound.
+constexpr int SCAN_THREADS = 64;
+constexpr int SCAN_MIN_BLOCKS = 8;
+// Words of one thread's staging slot: the 40 packed words, padded so that a
+// quarter-warp's 16-byte shared stores fall on distinct banks.
+constexpr int SCAN_SLOT = 44;
+
+// A point in 26-bit digits.
+struct PtD {
+  Fd x, y, t, z;
+};
+
+// a or b, word by word: a select of whole structs would keep both in local
+// memory and select an address.
+__device__ __forceinline__ PtD ptd_select(bool take_a, const PtD& a, const PtD& b) {
+  PtD r;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) {
+    r.x.v[i] = take_a ? a.x.v[i] : b.x.v[i];
+    r.y.v[i] = take_a ? a.y.v[i] : b.y.v[i];
+    r.t.v[i] = take_a ? a.t.v[i] : b.t.v[i];
+    r.z.v[i] = take_a ? a.z.v[i] : b.z.v[i];
+  }
+  return r;
+}
+
+__device__ __forceinline__ PtD ptd_identity() {
+  PtD p;
+  p.x = fd_zero();
+  p.y = fd_one();
+  p.t = fd_zero();
+  p.z = fd_one();
+  return p;
+}
+
+// ec.cuh::madd (ec.py::madd) in 26-bit digits, the same operations in the
+// same order: p1 + a table point in cached form (d2 = y2-x2, s2 = y2+x2,
+// td2 = 2*d*t2).
+__device__ __forceinline__ PtD madd26(const PtD& p1, const Fd& d2, const Fd& s2, const Fd& td2) {
+  const Fd d1 = fd_sub_lazy(p1.y, p1.x);
+  const Fd s1 = fd_add_lazy(p1.x, p1.y);
+  const Fd dd = fd_add_lazy(p1.z, p1.z);
+  const Fd a = mont26(d1, d2);
+  const Fd b = mont26(s1, s2);
+  const Fd cc = mont26(p1.t, td2);
+  const Fd e = fd_sub_lazy(b, a);
+  const Fd f = fd_sub_lazy(dd, cc);
+  const Fd g = fd_add_lazy(dd, cc);
+  const Fd h = fd_add_lazy(b, a);
+  PtD r;
+  r.x = mont26(e, f);
+  r.y = mont26(g, h);
+  r.t = mont26(e, h);
+  r.z = mont26(f, g);
+  return r;
+}
+
+// The cached form (y-x, y+x, 2*d*t) of one table row, its first 3*MSM_L
+// words (one limb a word), read with 16-byte loads, as digits.
+__device__ __forceinline__ void load_cached26(const uint32_t* row, Fd& d2, Fd& s2, Fd& td2) {
+  uint32_t w[3 * MSM_L];
+  const uint4* r4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int i = 0; i < 3 * MSM_L / 4; ++i) {
+    const uint4 q = r4[i];
+    w[4 * i] = q.x;
+    w[4 * i + 1] = q.y;
+    w[4 * i + 2] = q.z;
+    w[4 * i + 3] = q.w;
+  }
+  d2 = fd_from_limbs(w);
+  s2 = fd_from_limbs(w + MSM_L);
+  td2 = fd_from_limbs(w + 2 * MSM_L);
+}
+
+// One coordinate's MSM_LP packed words (ec.py::pt_pack) into w.
+__device__ __forceinline__ void pack_digits(const Fd& a, uint32_t* w) {
+#pragma unroll
+  for (int i = 0; i < MSM_LP; ++i) w[i] = fd_pack_word(a.v[i]);
+}
+
+// The warp's store of one step: for r < rows_valid, row r of the warp's
+// output (dst0 + r*fstride: this step's row of the warp's fragment r) gets
+// lane r's point, packed.  slot: this thread's staging slot; wslots: the
+// warp's 32 slots.
+__device__ __forceinline__ void warp_store_rows(const PtD& p, uint32_t* slot,
+                                                const uint32_t* wslots, uint32_t* dst0,
+                                                long long fstride, int rows_valid) {
+  uint32_t w[4 * MSM_LP];
+  pack_digits(p.x, w);
+  pack_digits(p.y, w + MSM_LP);
+  pack_digits(p.t, w + 2 * MSM_LP);
+  pack_digits(p.z, w + 3 * MSM_LP);
+  __syncwarp();  // the previous step's rows have been read out of the slots
+  uint4* s4 = reinterpret_cast<uint4*>(slot);
+#pragma unroll
+  for (int i = 0; i < MSM_LP; ++i)
+    s4[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  __syncwarp();
+  // Half-warp h writes rows 2r + h: lane c of it the 16-byte chunk c, zero
+  // past the 40 packed words.
+  const int lane = threadIdx.x & 31, half = lane >> 4, chunk = lane & 15;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int row = 2 * r + half;
+    if (row < rows_valid) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (chunk < MSM_LP) v = reinterpret_cast<const uint4*>(wslots + row * SCAN_SLOT)[chunk];
+      reinterpret_cast<uint4*>(dst0 + row * fstride)[chunk] = v;
+    }
+  }
+}
+
 template <int ROWS, int MASK, int STORE>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(SCAN_THREADS, SCAN_MIN_BLOCKS)
 scan_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ pidx_t,
             const int32_t* __restrict__ aux_t, uint32_t* __restrict__ out, long long nf,
             long long lblk) {
-  const long long f = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (f >= nf) return;
-  const Pt ident = pt_identity();
-  Pt acc = ident;
+  __shared__ __align__(16) uint32_t slots[SCAN_THREADS * SCAN_SLOT];
+  const long long warp0 = blockIdx.x * (long long)SCAN_THREADS + (threadIdx.x & ~31);
+  const long long f = min(warp0 + (threadIdx.x & 31), nf - 1);
+  const int rows_valid = (int)min(nf - warp0, 32LL);
+  uint32_t* slot = slots + threadIdx.x * SCAN_SLOT;
+  const uint32_t* wslots = slots + (threadIdx.x & ~31) * SCAN_SLOT;
+  const PtD ident = ptd_identity();
+  PtD acc = ident;
   int kprev = -1;
   const uint32_t* frag = rows;
   if constexpr (ROWS == ROWS_RM) frag = rows + f * (long long)(MSM_K * MSM_TWR);
   if constexpr (ROWS == ROWS_PRET) frag = rows + (f / lblk) * (MSM_K * 64 * lblk) + f % lblk;
-  uint32_t* dst = out + f * (long long)((MSM_K / STORE) * 2 * MSM_TW);
+  constexpr long long fstride = (MSM_K / STORE) * 2 * MSM_TW;
+  uint32_t* dst0 = out + warp0 * fstride;
 #pragma unroll 1
   for (int j = 0; j < MSM_K; ++j) {
-    Fe d2, s2, td2;
+    Fd d2, s2, td2;
     if constexpr (ROWS == ROWS_PRET) {
       const uint32_t* col = frag + j * 64 * lblk;
+      uint32_t w[3 * MSM_L];
 #pragma unroll
-      for (int i = 0; i < MSM_L; ++i) {
-        d2.v[i] = col[i * lblk];
-        s2.v[i] = col[(MSM_L + i) * lblk];
-        td2.v[i] = col[(2 * MSM_L + i) * lblk];
-      }
+      for (int i = 0; i < 3 * MSM_L; ++i) w[i] = col[i * lblk];
+      d2 = fd_from_limbs(w);
+      s2 = fd_from_limbs(w + MSM_L);
+      td2 = fd_from_limbs(w + 2 * MSM_L);
     } else {
       const uint32_t* row = ROWS == ROWS_RM
                                 ? frag + j * MSM_TWR
                                 : rows + (long long)pidx_t[j * nf + f] * MSM_TWR;
-      load_cached(row, d2, s2, td2);
+      load_cached26(row, d2, s2, td2);
     }
     const int aux = aux_t[j * nf + f];
     bool same;
@@ -85,18 +216,21 @@ scan_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ pidx_
       same = aux != 0;
     } else {
       if (aux & 2) {
-        const Fe t = d2;
+        const Fd t = d2;
         d2 = s2;
         s2 = t;
-        td2 = fr_neg_lazy(td2);
+        td2 = fd_neg_lazy(td2);
       }
       same = (aux & 1) != 0;
     }
-    acc = madd(pt_select(same, acc, ident), d2, s2, td2);
+    acc = madd26(ptd_select(same, acc, ident), d2, s2, td2);
     if constexpr (STORE == 2) {
-      pt_store(dst + (j >> 1) * (2 * MSM_TW) + (j & 1) * MSM_TW, acc);
+      warp_store_rows(acc, slot, wslots, dst0 + (j >> 1) * (2 * MSM_TW) + (j & 1) * MSM_TW,
+                      fstride, rows_valid);
     } else if ((j & 3) >= 2) {
-      pt_store(dst + (j >> 2) * (2 * MSM_TW) + ((j & 3) - 2) * MSM_TW, acc);
+      warp_store_rows(acc, slot, wslots,
+                      dst0 + (j >> 2) * (2 * MSM_TW) + ((j & 3) - 2) * MSM_TW, fstride,
+                      rows_valid);
     }
   }
 }
@@ -108,9 +242,8 @@ template <int ROWS, int MASK, int STORE>
 static int launch_scan(const void* rows, const void* pidx_t, const void* aux_t, void* out,
                        long long nf, long long lblk, void* stream) {
   if (nf > 0) {
-    const int threads = 128;
-    const long long blocks = (nf + threads - 1) / threads;
-    scan_kernel<ROWS, MASK, STORE><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const long long blocks = (nf + SCAN_THREADS - 1) / SCAN_THREADS;
+    scan_kernel<ROWS, MASK, STORE><<<blocks, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)rows, (const int32_t*)pidx_t, (const int32_t*)aux_t, (uint32_t*)out,
         nf, lblk);
   }

@@ -35,18 +35,22 @@ def int_to_limbs(v: int) -> np.ndarray:
 CONST_P, CONST_D, CONST_R, CONST_R2, CONST_Q4 = 0, 1, 2, 3, 4
 
 
-def _q4_limbs() -> np.ndarray:
-    """4p in headroom form: the same value, but every limb except the top is
-    >= 2^w, so q4 - b never borrows limb-wise for a normalized b < 3p.  Used
-    by the lazy subtraction a - b == a + (4p - b)."""
+def _q4_digits(width: int) -> np.ndarray:
+    """4p in headroom form, in digits of `width` bits: the same value, but
+    every digit except the top is >= 2^width - 1, so q4 - b never borrows
+    digit-wise for a normalized b < 3p.  Used by the lazy subtraction
+    a - b == a + (4p - b): 13-bit limbs here and in csrc/field.cuh, 26-bit
+    digits in csrc/field26.cuh."""
+    n = -(-L * W // width)
+    mask = (1 << width) - 1
     v = 4 * PARAMS.p
-    q = [(v >> (i * W)) & PARAMS.mask for i in range(L)]
-    for i in range(L - 1):
-        q[i] += 1 << W
+    q = [(v >> (i * width)) & mask for i in range(n)]
+    for i in range(n - 1):
+        q[i] += 1 << width
         q[i + 1] -= 1
-    b19_max = (3 * PARAMS.p) >> ((L - 1) * W)
-    if not (all(qi >= PARAMS.mask for qi in q[:-1]) and q[-1] >= b19_max + 1
-            and sum(qi << (i * W) for i, qi in enumerate(q)) == v):
+    top_max = (3 * PARAMS.p) >> ((n - 1) * width)
+    if not (all(qi >= mask for qi in q[:-1]) and q[-1] >= top_max + 1
+            and sum(qi << (i * width) for i, qi in enumerate(q)) == v):
         raise AssertionError("4p headroom form does not hold for these parameters")
     return np.array(q, dtype=np.uint32)
 
@@ -59,7 +63,7 @@ def make_consts_array() -> np.ndarray:
     out[:, CONST_D] = int_to_limbs(PARAMS.edwards_d_mont)
     out[:, CONST_R] = int_to_limbs(PARAMS.r)
     out[:, CONST_R2] = int_to_limbs(PARAMS.r2)
-    out[:, CONST_Q4] = _q4_limbs()
+    out[:, CONST_Q4] = _q4_digits(W)
     return out
 
 
@@ -129,6 +133,16 @@ _D = 2 * W
 _DMASK = (1 << _D) - 1
 #: -p^-1 mod 2^26.
 _N0D = (-pow(PARAMS.p, -1, 1 << _D)) % (1 << _D)
+
+
+def make_digit_consts() -> dict:
+    """The constants of csrc/field26.cuh (the scan kernels' madd in 26-bit
+    digits): p, R mod p and the headroom form of 4p as lists of 26-bit
+    digits, and N0' = -p^-1 mod 2^26."""
+    def digits(v: int) -> list[int]:
+        return [(v >> (i * _D)) & _DMASK for i in range(LP)]
+    return {"p": digits(PARAMS.p), "r": digits(PARAMS.r), "q4": _q4_digits(_D).tolist(),
+            "n0": _N0D}
 
 
 def _digits(a: torch.Tensor) -> torch.Tensor:

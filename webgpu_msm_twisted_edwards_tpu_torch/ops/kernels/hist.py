@@ -1,7 +1,8 @@
 """Bucket counts per window: counts[w, b] = #{i : keys[w, i] == b} for
 b < nb; the sentinel key nb (a zero digit) is not counted.
 
-Kernel: csrc/hist.cu, replacing the JAX package's
+Kernel: csrc/hist.cu (a histogram in the shared memory of a thread block
+cluster, which writes every count), replacing the JAX package's
 ops/pallas/hist.py::_hist_body.
 """
 
@@ -28,8 +29,11 @@ def bucket_counts(keys: torch.Tensor, nb: int) -> torch.Tensor:
     _build.capture("hist", keys, nb)
     if not _build.on_cuda(keys):
         return bucket_counts_plain(keys, nb)
+    if keys.dtype != torch.int32 or keys.dim() != 2:
+        raise TypeError(f"keys: expected a 2-d int32 tensor, got {keys.dtype} {tuple(keys.shape)}")
     wg, n = keys.shape
-    keys = _build.check(keys, torch.int32, (wg, n), "keys")
-    counts = torch.zeros((wg, nb), dtype=torch.int32, device=keys.device)
-    _build.launch("hist", "hist", "msm_bucket_counts", keys, counts, wg, n, nb)
+    counts = torch.empty((wg, nb), dtype=torch.int32, device=keys.device)
+    # The kernel reads the keys where they lie: the pipeline's are a
+    # transposed view, and a contiguous copy would cost more than the count.
+    _build.launch("hist", "hist", "msm_bucket_counts", keys, counts, wg, n, nb, *keys.stride())
     return counts
