@@ -6,23 +6,26 @@
 Phases (any failure raises and exits non-zero):
 1. the card's name and power limit, the torch and CUDA versions;
 2. build of every kernel from csrc/ (nvcc, in parallel), its seconds,
-   each kernel function's registers and spills, and the IMAD.WIDE.U32
-   count of the main path's scan (cuobjdump -sass), from which MONT is
-   taken;
-3. the main path: compute_msm at 2^16 points (c=13, plain-index gather) and
-   at 2^20 points (c=16, gather kernel) on inputs resident on the card (points
-   from the native oracle's generator, scalars from a seeded numpy
-   generator): kernel launch counts of one run, started from zero, then one
-   warm and five timed runs, and the result checked against the C++ oracle;
-4. each of the nine kernels replayed on the inputs of its largest call in the
-   2^20 run, held bit for bit against its plain PyTorch version, and timed
-   beside that version, the PyTorch library call that computes the same
-   function (where one exists) and its bound;
+   each kernel function's registers and spills, the IMAD.WIDE.U32 count of
+   the main path's scan (cuobjdump -sass), from which MONT is taken, and
+   the carry scan's stack frame and calls (none of either, or it fails);
+3. the main path: compute_msm at 2^16 points (c=13) and at 2^20 points
+   (c=16) on inputs resident on the card (points from the native oracle's
+   generator, scalars from a seeded numpy generator): kernel launch counts
+   of one run, started from zero (the scan that reads the table by index
+   once per window group, no gather kernel and no scan of gathered rows),
+   then one warm and five timed runs, and the result checked against the
+   C++ oracle;
+4. each of the eight kernels replayed on the inputs of its largest call in
+   the 2^20 run, held bit for bit against its plain PyTorch version, and
+   timed beside that version, the PyTorch library call that computes the
+   same function (where one exists) and its bound;
 5. the fixed-base path on the 2^20 inputs: precompute_msm_base (c=16, W'=16,
    a merged table of 2^24 rows) timed with its launch counts, then
-   compute_msm_precomputed with its launch counts, one warm and five timed
-   runs, its result checked against the 2^20 compute_msm answer (which
-   phase 3 held to the oracle), and once more forced into two entry blocks;
+   compute_msm_precomputed with its launch counts (the single table read by
+   index in the scan, no gather), one warm and five timed runs, its result
+   checked against the 2^20 compute_msm answer (which phase 3 held to the
+   oracle), and once more forced into two entry blocks;
 6. the four kernels of the fixed-base path replayed as in 4; the whole
    output of each row-wise one (convert_pair, double_rows, normalize) is
    held against its plain version in chunks of PLAIN_ROWS rows;
@@ -30,12 +33,19 @@ Phases (any failure raises and exits non-zero):
    pipeline's switches in CONFIGS (the module attributes, set and restored
    here), launch counts of one run from zero, then one warm and three
    timed runs, each result equal to the 2^20 answer of phase 3; the fused
-   gather-scan (window_group_bucket_sums(fused=True)) on the 2^20 table
-   and digits of one window group, its bucket rows bit for bit equal to the
-   default's; and the seven kernels of these configurations replayed as in
-   4 (extract_reconstruct in chunks of PLAIN_ROWS rows; msm_scan, which no
-   configuration runs, on the rows of the quarter-store run and the keys of
-   the pret run with the same bits off);
+   gather-scan (window_group_bucket_sums(fused=True), which the default
+   runs too) on the 2^20 table and digits of one window group, its bucket
+   rows bit for bit equal to the quarter store's (a scan of rows that the
+   gather kernel copied), and on the same inputs the fused scan timed
+   against msm_scan_table_sames with the same-bit pass it needs, on the
+   indices where they lie and on a contiguous copy; and the ten kernels of
+   these configurations replayed as in 4 (extract_reconstruct in chunks of
+   PLAIN_ROWS rows; the gather kernel on the quarter store's call; the four
+   scans that no configuration runs: msm_scan_table_sames on the fused
+   call's inputs, the scans of gathered rows on the rows of the
+   quarter-store run, with its same bits or the keys of the pret run with
+   the same bits off, and on the single-table run's rows gathered by
+   indexing);
 8. the measurement probes of experiments/ (webgpu_msm_twisted_edwards_tpu_
    torch/experiments/): each probe's main() at the JAX probe's default
    shape, its launch counts from zero, then each of its kernels replayed on
@@ -95,8 +105,9 @@ def log(msg: str) -> None:
 
 
 def sass_count(lib: str, kernel: str, opcode: str) -> int | None:
-    """Instructions of one opcode in a kernel of a built library (cuobjdump
-    -sass); None where the toolkit has no cuobjdump."""
+    """Instructions of one opcode (exactly, modifiers included) in a kernel
+    of a built library (cuobjdump -sass); None where the toolkit has no
+    cuobjdump."""
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
 
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -105,6 +116,17 @@ def sass_count(lib: str, kernel: str, opcode: str) -> int | None:
     sass = subprocess.run([exe, "-sass", "-fun", kernel, _build._lib_path(lib)],
                           capture_output=True, text=True, check=True).stdout
     return sum(1 for ln in sass.splitlines() if f" {opcode} " in ln)
+
+
+def ptxas_function(lib: str, part: str) -> str:
+    """The mangled name of the one function of a built library whose name
+    holds `part`, from the library's ptxas report."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+
+    names = [ln.split(":")[0] for ln in _build.ptxas_report()[lib] if part in ln.split(":")[0]]
+    if len(names) != 1:
+        raise AssertionError(f"{lib}: functions named like {part}: {names}")
+    return names[0]
 
 
 def card_inputs(n: int):
@@ -123,18 +145,30 @@ def card_inputs(n: int):
 def main_path(n: int, capture: bool) -> dict:
     """Drive compute_msm at n points; returns its numbers."""
     from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
     from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+    from webgpu_msm_twisted_edwards_tpu_torch.utils.params import tpu_msm_config
 
     pts, sc, coords, scalars = card_inputs(n)
+    cfg = tpu_msm_config(n)
+    groups = cfg.num_windows // MP.default_window_group(n, cfg.num_windows, coords.device)
 
     _build.captures = {} if capture else None
     _build.reset_launch_counts()
-    t0 = time.time()
-    res = compute_msm(coords, scalars)
-    first_ms = (time.time() - t0) * 1e3
+    # Every masked_add call of this run, for the bound of all of them.
+    record, masked_adds = _build.capture, []
+    _build.capture = lambda kernel, *args: (
+        masked_adds.append(args) if kernel == "masked_add" else None, record(kernel, *args))
+    try:
+        t0 = time.time()
+        res = compute_msm(coords, scalars)
+        first_ms = (time.time() - t0) * 1e3
+    finally:
+        _build.capture = record
     launches = dict(_build.launches)
     captures, _build.captures = _build.captures, None
+    masked_add_bound_ms = sum(bound_ms(*work("masked_add", args, args[0])) for args in masked_adds)
 
     times = []
     for _ in range(RUNS):
@@ -148,15 +182,15 @@ def main_path(n: int, capture: bool) -> dict:
     oracle_s = time.time() - t0
     if (res["x"], res["y"]) != want:
         raise AssertionError(f"2^{n.bit_length() - 1}: got {res}, oracle {want}")
-    return {"n": n, "launches": launches, "first_ms": first_ms, "runs_ms": times,
-            "median_ms": statistics.median(times), "oracle": "MATCH", "oracle_s": oracle_s,
-            "captures": captures, "result": res}
+    return {"n": n, "launches": launches, "groups": groups, "first_ms": first_ms,
+            "runs_ms": times, "median_ms": statistics.median(times), "oracle": "MATCH",
+            "oracle_s": oracle_s, "masked_add_rows": [a[0].shape[0] for a in masked_adds],
+            "masked_add_bound_ms": masked_add_bound_ms, "captures": captures, "result": res}
 
 
 #: Kernels each run of the fixed-base path must launch.
 PRECOMPUTE_LAUNCHES = {"convert_pair": 1, "double_rows": 15, "normalize": 15}
-FIXED_BASE_MSM_KERNELS = ("hist", "gather", "scan_signed", "ab_scan", "masked_add", "bpr1",
-                          "bpr2")
+FIXED_BASE_MSM_KERNELS = ("hist", "scan_table_signed", "ab_scan", "masked_add", "bpr1", "bpr2")
 
 
 def fixed_base_path(n: int, want: dict) -> dict:
@@ -187,12 +221,13 @@ def fixed_base_path(n: int, want: dict) -> dict:
     first_ms = (time.time() - t0) * 1e3
     launches = dict(_build.launches)
     captures = {k: v for k, v in _build.captures.items()
-                if k in ("convert_pair", "double_rows", "normalize", "scan_signed")}
+                if k in ("convert_pair", "double_rows", "normalize", "scan_table_signed")}
     _build.captures = None
     if res != want:
         raise AssertionError(f"fixed base: got {res}, compute_msm {want}")
     missing = [k for k in FIXED_BASE_MSM_KERNELS if launches.get(k, 0) < 1]
-    if missing or launches.get("scan", 0) or launches.get("horner", 0):
+    if missing or any(launches.get(k, 0) for k in ("gather", "scan_signed", "scan_fused",
+                                                   "horner")):
         raise AssertionError(f"fixed-base MSM launches {launches}; missing {missing}")
 
     times = []
@@ -237,18 +272,24 @@ def fixed_base_path(n: int, want: dict) -> dict:
 CONFIGS = (
     ("pret", {"_SCAN_LAYOUT": "pret"}, {"scan_pret"}),
     ("pret, sames off", {"_SCAN_LAYOUT": "pret", "_SCAN_SAMES": False}, {"scan_pret_keys"}),
-    ("single table, rm", {"_SINGLE_TABLE": True}, {"scan_signed"}),
+    ("single table, rm", {"_SINGLE_TABLE": True}, {"scan_table_signed"}),
     ("single table, pret", {"_SINGLE_TABLE": True, "_SCAN_LAYOUT": "pret"},
      {"scan_pret_signed"}),
     ("quarter store", {"_SCAN_QSTORE": True}, {"scan_q", "extract_reconstruct"}),
-    ("MSM_DMA_EXTRACT", {"_DMA_EXTRACT": True}, {"scan"}),
-    ("MSM_SORT_I64", {"_SORT_I64": True}, {"scan"}),
-    ("MSM_DMA_GATHER=0", {"_DMA_GATHER": False}, {"scan"}),
+    ("MSM_DMA_EXTRACT", {"_DMA_EXTRACT": True}, {"scan_fused"}),
+    ("MSM_SORT_I64", {"_SORT_I64": True}, {"scan_fused"}),
+    ("MSM_DMA_GATHER=0, quarter store", {"_DMA_GATHER": False, "_SCAN_QSTORE": True},
+     {"scan_q", "extract_reconstruct"}),
 )
 SWITCHES = ("_SCAN_SAMES", "_SINGLE_TABLE", "_SCAN_LAYOUT", "_DMA_GATHER", "_DMA_EXTRACT",
             "_SORT_I64", "_SCAN_QSTORE", "_DMA_GATHER_MIN_ROWS")
 SCAN_KERNELS = {"scan", "scan_signed", "scan_keys", "scan_pret", "scan_pret_keys",
-                "scan_pret_signed", "scan_q", "scan_fused"}
+                "scan_pret_signed", "scan_q", "scan_fused", "scan_table", "scan_table_signed"}
+#: Kernels of the main and fixed-base paths, captured and replayed there.
+PATH_KERNELS = {"scan_fused", "scan_table_signed"}
+#: Scans that no configuration runs: replayed on other configurations'
+#: inputs.
+REPLAYED = ("scan", "scan_signed", "scan_keys", "scan_table")
 CONFIG_RUNS = 3
 
 
@@ -256,17 +297,19 @@ def configs_path(n: int, want: dict, default_launches: dict) -> dict:
     """Drive compute_msm at n points in each configuration of CONFIGS and the
     fused gather-scan on one window group; `want` is the default
     configuration's answer (held to the oracle), `default_launches` its
-    launch counts.  Returns the numbers and the captured inputs of the seven
+    launch counts.  Returns the numbers and the captured inputs of the ten
     kernels these configurations add."""
     from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
     from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
     from webgpu_msm_twisted_edwards_tpu_torch.ops.convert import decompose_scalars_signed
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import scan as S
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.scan import K, TWR
     from webgpu_msm_twisted_edwards_tpu_torch.utils.params import tpu_msm_config
 
     _, _, coords, scalars = card_inputs(n)
     saved = {a: getattr(MP, a) for a in SWITCHES}
-    out, captures, launches = {}, {}, {"scan_keys": 0}
+    out, captures, launches = {}, {}, {k: 0 for k in (*REPLAYED, "gather")}
     try:
         for name, switches, scans in CONFIGS:
             for a, v in {**saved, **switches}.items():
@@ -277,10 +320,16 @@ def configs_path(n: int, want: dict, default_launches: dict) -> dict:
             res = compute_msm(coords, scalars)
             first_ms = (time.time() - t0) * 1e3
             ran = dict(_build.launches)
-            launches["scan_keys"] += ran.get("scan_keys", 0)
-            for k in scans - {"scan", "scan_signed"}:
+            for k in REPLAYED:
+                launches[k] += ran.get(k, 0)
+            for k in scans - PATH_KERNELS:
                 captures[k] = _build.captures[k]
                 launches[k] = ran[k]
+            if name == "quarter store":
+                captures["gather"] = _build.captures["gather"]
+                launches["gather"] = ran["gather"]
+            if name == "single table, rm":
+                rows_signed = _build.captures["scan_table_signed"][1]
             _build.captures = None
             if res != want:
                 raise AssertionError(f"{name}: got {res}, the default configuration {want}")
@@ -288,7 +337,8 @@ def configs_path(n: int, want: dict, default_launches: dict) -> dict:
             bad = (scans - launched) | (launched & SCAN_KERNELS - scans)
             gathers, default_gathers = ran.get("gather", 0), default_launches.get("gather", 0)
             if (bad or (name == "MSM_DMA_EXTRACT" and gathers <= default_gathers)
-                    or (name == "MSM_DMA_GATHER=0" and gathers)):
+                    or (name == "quarter store" and not gathers)
+                    or (name.startswith("MSM_DMA_GATHER=0") and gathers)):
                 raise AssertionError(f"{name}: launches {ran}")
             compute_msm(coords, scalars)
             times = []
@@ -308,9 +358,16 @@ def configs_path(n: int, want: dict, default_launches: dict) -> dict:
         for a, v in saved.items():
             setattr(MP, a, v)
         _build.captures = None
-    # msm_scan runs on no branch: it is replayed on the quarter-store run's
-    # rows (the default gather's) and the keys of the pret run.
+    # The scans of gathered rows run on no branch: they are replayed on the
+    # quarter-store run's rows (the gather kernel's) with its same bits or
+    # the keys of the pret run, and on the single-table run's rows gathered
+    # by indexing with its bits.  msm_scan_table_sames is replayed below.
+    captures["scan"] = captures["scan_q"]
     captures["scan_keys"] = (None, (captures["scan_q"][1][0], captures["scan_pret_keys"][1][1]))
+    table_s, pidx_t, bits_t = rows_signed
+    captures["scan_signed"] = (None, (table_s[pidx_t.T.reshape(-1).to(torch.int64)].reshape(
+        -1, K, TWR), bits_t))
+    del rows_signed, table_s, pidx_t, bits_t
 
     cfg = tpu_msm_config(n)
     table = MP.build_full_table(coords)
@@ -319,19 +376,45 @@ def configs_path(n: int, want: dict, default_launches: dict) -> dict:
     _build.captures = {}
     _build.reset_launch_counts()
     fused = MP.window_group_bucket_sums(table, digits_g, cfg.num_buckets, fused=True)
-    launches["scan_fused"] = _build.launches["scan_fused"]
-    launches["scan_keys"] += _build.launches.get("scan_keys", 0)
-    captures["scan_fused"] = _build.captures["scan_fused"]
+    for k in REPLAYED:
+        launches[k] += _build.launches.get(k, 0)
+    fused_args = _build.captures["scan_fused"][1]
     _build.captures = None
-    default = MP.window_group_bucket_sums(table, digits_g, cfg.num_buckets)
-    if not torch.equal(fused, default):
-        raise AssertionError("fused gather-scan: bucket rows differ from the default's")
+    try:
+        MP._SCAN_QSTORE = True
+        gathered = MP.window_group_bucket_sums(table, digits_g, cfg.num_buckets)
+    finally:
+        MP._SCAN_QSTORE = saved["_SCAN_QSTORE"]
+    if not torch.equal(fused, gathered):
+        raise AssertionError("fused gather-scan: bucket rows differ from the quarter store's")
+    table_t, pidx_t, keys_t = fused_args
+    captures["scan_table"] = (None, (table_t, pidx_t, S.keys_to_sames(keys_t)))
     out["fused"] = {"windows": digits_g.shape[0], "bucket_rows": fused.shape[0],
-                    "equals_default": True}
+                    "equals_quarter_store": True,
+                    "table_scan_choices": table_scan_choices(*fused_args)}
     log(f"window_group_bucket_sums fused=True, {digits_g.shape[0]} windows of 2^"
-        f"{n.bit_length() - 1}: {fused.shape[0]} bucket rows equal to the default's")
-    del table, digits_g, fused, default
+        f"{n.bit_length() - 1}: {fused.shape[0]} bucket rows equal to the quarter store's; "
+        f"table scans, ms: {out['fused']['table_scan_choices']}")
+    del table, digits_g, fused, gathered, fused_args, table_t, pidx_t, keys_t
     return {"configs": out, "captures": captures, "launches": launches}
+
+
+def table_scan_choices(table, pidx_t, keys_t) -> dict:
+    """Mean ms of the choices the default's scan was picked from, on one
+    window group's table, indices (the pipeline's transposed view) and
+    sorted keys: msm_scan_fused, which compares the keys in the kernel (the
+    default's); msm_scan_table_sames with the same-bit pass it needs, on
+    the indices where they lie and on a contiguous copy (the copy timed)."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import scan as S
+
+    return {
+        "table_sames": time_kernel(lambda: S.msm_scan_table_sames(
+            table, pidx_t, S.keys_to_sames(keys_t))),
+        "table_sames_contiguous_indices": time_kernel(lambda: S.msm_scan_table_sames(
+            table, pidx_t.contiguous(), S.keys_to_sames(keys_t))),
+        "fused_keys": time_kernel(lambda: S.msm_scan_fused(table, pidx_t, keys_t)),
+        "keys_to_sames": time_kernel(lambda: S.keys_to_sames(keys_t)),
+    }
 
 
 #: Probe scans whose first argument holds one row per entry.
@@ -403,11 +486,12 @@ def work(name: str, args, out) -> tuple[int, int]:
         # Limb-major rows: 3L of the 64 words of each entry are used.
         entries = args[0].numel() // 64
         return moved - nbytes(args[0]) + entries * 3 * L * 4, entries * MADD
-    if name == "scan_fused":
-        # The table read once (its used words); one madd per entry.
+    if name in ("scan_fused", "scan_table", "scan_table_signed"):
+        # The used words of each table row that the indices name, read
+        # once; one madd per entry.
         table, pidx_t = args[0], args[1]
-        return (moved - nbytes(table) + table.shape[0] * 3 * L * 4,
-                pidx_t.numel() * MADD)
+        rows = int(torch.unique(pidx_t).numel())
+        return moved - nbytes(table) + rows * 3 * L * 4, pidx_t.numel() * MADD
     if name == "extract_reconstruct":
         # Per row: the 4·LP used words of the base row, the 3L used words of
         # each pair half whose step runs, the used words of the carry where
@@ -444,6 +528,12 @@ def work(name: str, args, out) -> tuple[int, int]:
         # A squaring per bit of p-2, a multiply per set bit, then x and y.
         return moved, args[0].shape[0] * (EXP_BITS + bin(EXP).count("1") + 2) * MONT
     raise KeyError(name)
+
+
+def bound_ms(moved: int, imads: int) -> float:
+    """The least time of a call that moves `moved` bytes and does `imads`
+    32-bit multiply-adds: the larger of the two over the card's peaks."""
+    return max(moved / PEAK_BYTES_PER_S, imads / PEAK_IMAD_PER_S) * 1e3
 
 
 def lib_gather(table, pidx_t):
@@ -497,10 +587,8 @@ def kernel_specs() -> tuple[list, list, list]:
              "pallas/convert.py:116"),
         same("hist", H.bucket_counts, H.bucket_counts_plain, "hist.cu", "pallas/hist.py:36",
              lib_hist),
-        same("gather", G.row_gather, G.row_gather_plain, "gather.cu", "pallas/gather.py:48",
-             lib_gather),
-        same("scan", S.msm_scan_rm_sames, S.msm_scan_rm_sames_plain, "scan.cu",
-             "pallas/scan.py:337"),
+        same("scan_fused", S.msm_scan_fused, S.msm_scan_fused_plain, "scan.cu",
+             "pallas/scan.py:164"),
         same("ab_scan", S.ab_scan_level, S.ab_scan_level_plain, "scan.cu",
              "pallas/scan.py:409"),
         same("masked_add", E.masked_add_rows, E.masked_add_rows_plain, "ec.cu",
@@ -515,14 +603,22 @@ def kernel_specs() -> tuple[list, list, list]:
         # pair's first.
         Spec("convert_pair", CV.build_table, CV.build_table_pair, CV.build_table_pair_plain,
              "convert.cu", JAX_PKG + "pallas/convert.py:41", None, PLAIN_ROWS),
-        same("scan_signed", S.msm_scan_rm_signed, S.msm_scan_rm_signed_plain, "scan.cu",
-             "pallas/scan.py:378"),
+        # msm_scan_rm_signed over the rows that the JAX package gathers for
+        # it, read by index.
+        same("scan_table_signed", S.msm_scan_table_signed, S.msm_scan_table_signed_plain,
+             "scan.cu", "pallas/scan.py:378"),
         same("double_rows", E.double_rows, E.double_rows_plain, "ec.cu", "pallas/ec.py:278",
              chunk=PLAIN_ROWS),
         same("normalize", PK.normalize_rows, PK.normalize_rows_plain, "precompute.cu",
              "precompute.py:117", chunk=PLAIN_ROWS),
     ]
     variants = [
+        same("gather", G.row_gather, G.row_gather_plain, "gather.cu", "pallas/gather.py:48",
+             lib_gather),
+        same("scan", S.msm_scan_rm_sames, S.msm_scan_rm_sames_plain, "scan.cu",
+             "pallas/scan.py:337"),
+        same("scan_signed", S.msm_scan_rm_signed, S.msm_scan_rm_signed_plain, "scan.cu",
+             "pallas/scan.py:378"),
         same("scan_keys", S.msm_scan, S.msm_scan_plain, "scan_variants.cu",
              "pallas/scan.py:62"),
         same("scan_pret_keys", S.msm_scan_pret, S.msm_scan_pret_plain, "scan_variants.cu",
@@ -533,8 +629,10 @@ def kernel_specs() -> tuple[list, list, list]:
              "scan_variants.cu", "pallas/scan.py:314"),
         same("scan_q", S.msm_scan_rm_sames_q, S.msm_scan_rm_sames_q_plain, "scan_variants.cu",
              "pallas/scan.py:357"),
-        same("scan_fused", S.msm_scan_fused, S.msm_scan_fused_plain, "scan_variants.cu",
-             "pallas/scan.py:164"),
+        # msm_scan_rm_sames over the rows that the JAX package's gather
+        # (pallas/gather.py:48) copies for it, read by index.
+        same("scan_table", S.msm_scan_table_sames, S.msm_scan_table_sames_plain,
+             "scan_variants.cu", "pallas/scan.py:337"),
         same("extract_reconstruct", E.extract_reconstruct_rows,
              E.extract_reconstruct_rows_plain, "ec.cu",
              "pallas/ec.py:185", chunk=PLAIN_ROWS),
@@ -740,28 +838,36 @@ def main() -> int:
     for lib, lines in _build.ptxas_report().items():
         for ln in lines:
             log(f"ptxas {lib}: {ln}")
-    # The main path's scan, msm_scan_rm_sames: one step of its loop is one
+    # The main path's scan, msm_scan_fused: one step of its loop is one
     # madd, 7 products.
-    wide = sass_count("scan", "_ZN3msm11scan_kernelILi0ELi1ELi2EEEvPKjPKiS4_Pjxx",
-                      "IMAD.WIDE.U32")
-    log(f"sass scan (msm_scan_rm_sames): {wide} IMAD.WIDE.U32, "
+    scan_fn = ptxas_function("scan", "scan_kernelILi2ELi0ELi2E")
+    wide = sass_count("scan", scan_fn, "IMAD.WIDE.U32")
+    log(f"sass scan (msm_scan_fused): {wide} IMAD.WIDE.U32, "
         f"{'not counted' if wide is None else round(wide / 7, 1)} a product; MONT = {MONT}")
+    # The carry scan's chain of full adds: inlined, so no call and no frame.
+    ab_fn = ptxas_function("scan", "ab_scan_kernel")
+    ab_line = next(ln for ln in _build.ptxas_report()["scan"] if ln.startswith(ab_fn))
+    calls = sass_count("scan", ab_fn, "CALL.REL.NOINC")
+    log(f"ab_scan_kernel: {ab_line.split(': ', 1)[1]}; "
+        f"{'calls not counted' if calls is None else f'{calls} calls'}")
+    if " 0 bytes stack frame" not in ab_line or calls:
+        raise AssertionError(f"ab_scan_kernel has a stack frame or calls: {ab_line}, {calls}")
     main_specs, fixed_specs, variant_specs = kernel_specs()
 
     e2e = {}
-    for logn, capture, must_launch in ((16, False, 8), (20, True, 9)):
+    for logn, capture in ((16, False), (20, True)):
         r = main_path(1 << logn, capture)
         e2e[f"2^{logn}"] = r
-        ran = [k for k, v in r["launches"].items() if v > 0]
         log(f"compute_msm 2^{logn}: median {r['median_ms']:.2f} ms of {RUNS} "
             f"{[round(t, 2) for t in r['runs_ms']]}, first run {r['first_ms']:.1f} ms, "
-            f"oracle {r['oracle']} ({r['oracle_s']:.1f} s), launches {r['launches']}")
-        if len(ran) < must_launch:
-            raise AssertionError(f"2^{logn}: only {sorted(ran)} of the path's kernels launched")
-    if sorted(e2e["2^20"]["launches"]) != sorted(s[0] for s in main_specs):
-        raise AssertionError(f"2^20 launches: {e2e['2^20']['launches']}")
-    if e2e["2^16"]["launches"].get("gather", 0) != 0:
-        raise AssertionError("2^16 ran the gather kernel below its gate")
+            f"oracle {r['oracle']} ({r['oracle_s']:.1f} s), launches {r['launches']}; "
+            f"masked_add's {len(r['masked_add_rows'])} calls on {r['masked_add_rows']} rows, "
+            f"bound {r['masked_add_bound_ms']:.4f} ms in all")
+        # Every kernel of the path, the table scan once per window group.
+        ran = {k: v for k, v in r["launches"].items() if v > 0}
+        if sorted(ran) != sorted(s[0] for s in main_specs) or ran["scan_fused"] != r["groups"]:
+            raise AssertionError(f"2^{logn}: launches {r['launches']}, {r['groups']} window "
+                                 f"groups")
     kernels = kernels_phase(main_specs, e2e["2^20"].pop("captures"), e2e["2^20"]["launches"])
 
     t_fb = time.time()
@@ -791,6 +897,7 @@ def main() -> int:
 
     log(json.dumps({"e2e": {k: {"median_ms": v["median_ms"], "runs_ms": v["runs_ms"],
                                 "first_ms": v["first_ms"], "launches": v["launches"],
+                                "masked_add_bound_ms": v["masked_add_bound_ms"],
                                 "oracle": v["oracle"]} for k, v in e2e.items()},
                     "fixed_base_2^20": fb, "configs_2^20": cf, "probes": pr["probes"],
                     "build_s": build_s,

@@ -131,6 +131,12 @@ def _rm_scan_inputs(rng, case, signed, dev):
              else CV.build_table_doubled_plain(coords))
     pidx = torch.from_numpy(rng.integers(0, table.shape[0], size=nf * S.K)).to(dev)
     rows = table[pidx].reshape(nf, S.K, S.TWR)
+    return rows, _scan_aux(rng, case, signed, nf, dev)
+
+
+def _scan_aux(rng, case, signed, nf, dev):
+    """aux_t [K, nf] of _rm_scan_inputs' case: same bits, and sign bits for
+    the signed scan."""
     keys = np.sort(rng.integers(0, 9, size=(S.K, nf)), axis=0)
     if case == "one segment":
         keys[:] = 3
@@ -140,7 +146,7 @@ def _rm_scan_inputs(rng, case, signed, dev):
     if signed:
         sign = np.ones((S.K, nf)) if case == "every sign" else rng.integers(0, 2, size=(S.K, nf))
         aux = aux | (torch.from_numpy(sign.astype(np.int32)).to(dev) << 1)
-    return rows, aux
+    return aux
 
 
 SCAN_CASES = ["random", "ragged nf", "one segment", "segments of one", "near p"]
@@ -152,11 +158,35 @@ def test_scan(dev, case):
     assert _same(S.msm_scan_rm_sames(rows, sames), S.msm_scan_rm_sames_plain(rows, sames))
 
 
-def test_ab_scan_level(dev):
+def _carry_flags(rng, n, case):
+    """[n] 0/1 flags a of the carry scan: random, or long runs of 1 (each
+    carry passes through whole chunks) broken by a few zeros."""
+    if case == "random":
+        return rng.integers(0, 2, size=n).astype(np.int32)
+    a = np.ones(n, dtype=np.int32)
+    a[rng.integers(0, n, size=max(1, n // 1000))] = 0
+    return a
+
+
+@pytest.mark.parametrize("case", ["random", "long runs of a = 1"])
+def test_ab_scan_level(dev, monkeypatch, case):
+    """One level over 4096 fragments (64 chunks of 64), and the three levels
+    of the carry scan over the 2^20 path's 2^18 fragments (4096, 64 and 1
+    chunks): the kernel against its plain version, level by level."""
     rng = np.random.default_rng(5)
-    a = torch.from_numpy(rng.integers(0, 2, size=4096).astype(np.int32)).to(dev)
+    a = torch.from_numpy(_carry_flags(rng, 4096, case)).to(dev)
     b = _point_rows(rng, 4096, dev)
     assert _same(S.ab_scan_level(a, b, 64), S.ab_scan_level_plain(a, b, 64))
+    n = 1 << 18
+    a = torch.from_numpy(_carry_flags(rng, n, case)).to(dev)
+    b = _point_rows(rng, n, dev)
+    levels, level = [], S.ab_scan_level
+    monkeypatch.setattr(S, "ab_scan_level",
+                        lambda a, b, kab: levels.append((a, b, kab)) or level(a, b, kab))
+    S.seg_carry_scan(a, b)
+    assert [(x[0].shape[0], x[2]) for x in levels] == [(n, 64), (4096, 64), (64, 64)]
+    for la, lb, kab in levels:
+        assert _same(level(la, lb, kab), S.ab_scan_level_plain(la, lb, kab))
 
 
 def test_masked_add(dev):
@@ -231,6 +261,35 @@ def test_scan_signed(dev, case):
     assert _same(S.msm_scan_rm_signed(rows, bits), S.msm_scan_rm_signed_plain(rows, bits))
 
 
+def _table_scan_inputs(rng, case, signed, dev):
+    """(table, pidx [nf, K], aux_t) of a scan that reads the table by index,
+    in the cases of _rm_scan_inputs; the last fragment's rows all the
+    table's last row."""
+    nf = 300 if case == "ragged nf" else 256
+    coords = _near_p_coords(rng, 64, dev) if case == "near p" else _coords(rng, 64, dev)
+    table = (CV.build_table_pair_plain(coords)[0] if signed
+             else CV.build_table_doubled_plain(coords))
+    pidx = torch.from_numpy(rng.integers(0, table.shape[0], size=(nf, S.K)).astype(np.int32))
+    pidx[-1] = table.shape[0] - 1
+    return table, pidx.to(dev), _scan_aux(rng, case, signed, nf, dev)
+
+
+@pytest.mark.parametrize("signed,case", [(False, c) for c in SCAN_CASES]
+                         + [(True, c) for c in SCAN_CASES + ["every sign"]])
+def test_scan_table(dev, signed, case):
+    """The table scans against their plain versions, the indices as the
+    pipeline passes them (the transposed view of [nf, K]) and contiguous;
+    and against the row-major scan of the gathered rows."""
+    table, pidx, aux = _table_scan_inputs(np.random.default_rng(24), case, signed, dev)
+    scan, plain, rm = ((S.msm_scan_table_signed, S.msm_scan_table_signed_plain,
+                        S.msm_scan_rm_signed) if signed else
+                       (S.msm_scan_table_sames, S.msm_scan_table_sames_plain, S.msm_scan_rm_sames))
+    want = plain(table, pidx.T, aux)
+    assert _same(scan(table, pidx.T, aux), want)
+    assert _same(scan(table, pidx.T.contiguous(), aux), want)
+    assert _same(rm(table[pidx.to(torch.int64)], aux), want)
+
+
 def test_fixed_base_block_clamps_rows_past_the_table(dev):
     """A block of 2^21 entries (the gather kernel's gate) over a table of
     4096 rows: entries past the table read its last row, so the buckets equal
@@ -246,6 +305,49 @@ def test_fixed_base_block_clamps_rows_past_the_table(dev):
     got = MP.window_group_bucket_sums(table, digits, nb, table_base=0)
     padded = torch.cat([table, table[-1:].expand(nblk - 4096, -1)])
     assert _same(got, MP.window_group_bucket_sums(padded, digits, nb, table_base=0))
+
+
+def test_fixed_base_block_scan_reads_rows_past_the_table(dev):
+    """The block's table scan, on the indices of a block whose entries pass
+    the table's end (clamped to its last row), against its plain version;
+    the block launches no gather."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
+
+    rng = np.random.default_rng(25)
+    table = CV.build_table(_coords(rng, 4096, dev))
+    nblk, nb = 1 << 16, 128
+    digits = torch.zeros((1, nblk), dtype=torch.int32)
+    digits[0, :4096] = torch.from_numpy(rng.integers(-128, 128, size=4096).astype(np.int32))
+    _build.captures = {}
+    _build.reset_launch_counts()
+    try:
+        MP.window_group_bucket_sums(table, digits.to(dev), nb, table_base=1024)
+        args = _build.captures["scan_table_signed"][1]
+    finally:
+        _build.captures = None
+    assert _build.launches["scan_table_signed"] == 1 and not _build.launches["gather"]
+    assert int(args[1].max()) == table.shape[0] - 1
+    assert _same(S.msm_scan_table_signed(*args), S.msm_scan_table_signed_plain(*args))
+
+
+def test_default_route_launches_no_gather(dev, monkeypatch):
+    """The doubled table's default scans rows by index even with the gather
+    gate open; the quarter store gathers on the gather kernel."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
+
+    rng = np.random.default_rng(26)
+    n, nb = 4096, 256
+    table = CV.build_table_doubled(_coords(rng, n, dev))
+    digits = torch.from_numpy(rng.integers(-nb, nb + 1, size=(3, n)).astype(np.int32)).to(dev)
+    monkeypatch.setattr(MP, "_DMA_GATHER_MIN_ROWS", 0)
+    _build.reset_launch_counts()
+    default = MP.window_group_bucket_sums(table, digits, nb)
+    assert _build.launches["scan_fused"] == 1, _build.launches
+    assert not _build.launches["gather"] and not _build.launches["scan"]
+    monkeypatch.setattr(MP, "_SCAN_QSTORE", True)
+    _build.reset_launch_counts()
+    assert _same(MP.window_group_bucket_sums(table, digits, nb), default)
+    assert _build.launches["gather"] == 1 and _build.launches["scan_q"] == 1
 
 
 def test_compute_msm_precomputed_cuda_matches_cpu(dev):
@@ -359,13 +461,14 @@ def test_extract_reconstruct(dev):
 CONFIGS = {
     "pret": ({"_SCAN_LAYOUT": "pret"}, {"scan_pret"}),
     "pret_keys": ({"_SCAN_LAYOUT": "pret", "_SCAN_SAMES": False}, {"scan_pret_keys"}),
-    "single_rm": ({"_SINGLE_TABLE": True}, {"scan_signed", "convert_pair"}),
+    "single_rm": ({"_SINGLE_TABLE": True}, {"scan_table_signed", "convert_pair"}),
     "single_pret": ({"_SINGLE_TABLE": True, "_SCAN_LAYOUT": "pret"},
                     {"scan_pret_signed", "convert_pair"}),
     "quarter_store": ({"_SCAN_QSTORE": True}, {"scan_q", "extract_reconstruct"}),
-    "dma_extract": ({"_DMA_EXTRACT": True}, {"scan", "gather"}),
-    "sort_i64": ({"_SORT_I64": True}, {"scan"}),
-    "no_dma_gather": ({"_DMA_GATHER": False, "_DMA_GATHER_MIN_ROWS": 0}, {"scan"}),
+    "dma_extract": ({"_DMA_EXTRACT": True}, {"scan_fused", "gather"}),
+    "sort_i64": ({"_SORT_I64": True}, {"scan_fused"}),
+    "no_dma_gather": ({"_DMA_GATHER": False, "_DMA_GATHER_MIN_ROWS": 0, "_SCAN_QSTORE": True},
+                      {"scan_q", "extract_reconstruct"}),
 }
 
 
@@ -399,13 +502,16 @@ def test_compute_msm_configuration_matches_cpu(msm_2_14, monkeypatch, name):
     assert compute_msm(coords, scalars) == want
     ran = {k for k, v in _build.launches.items() if v}
     assert kernels <= ran, ran
-    scans = {"scan", "scan_signed", "scan_pret", "scan_pret_keys", "scan_pret_signed", "scan_q"}
+    scans = {"scan", "scan_signed", "scan_pret", "scan_pret_keys", "scan_pret_signed", "scan_q",
+             "scan_fused", "scan_table", "scan_table_signed"}
     assert not (scans - kernels) & ran, ran
     if name == "no_dma_gather":
         assert "gather" not in ran
 
 
-def test_fused_bucket_rows_match_default(dev):
+def test_fused_bucket_rows_match_default(dev, monkeypatch):
+    """fused=True, the default (both the fused scan), and the quarter store,
+    which scans rows that the gather kernel copied."""
     from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
 
     rng = np.random.default_rng(23)
@@ -413,8 +519,11 @@ def test_fused_bucket_rows_match_default(dev):
     table = CV.build_table_doubled(_coords(rng, n, dev))
     digits = torch.from_numpy(rng.integers(-nb, nb + 1, size=(3, n)).astype(np.int32)).to(dev)
     digits[1, :2000] = 5                                     # a run over many fragments
-    assert _same(MP.window_group_bucket_sums(table, digits, nb, fused=True),
-                 MP.window_group_bucket_sums(table, digits, nb))
+    fused = MP.window_group_bucket_sums(table, digits, nb, fused=True)
+    assert _same(fused, MP.window_group_bucket_sums(table, digits, nb))
+    monkeypatch.setattr(MP, "_SCAN_QSTORE", True)
+    monkeypatch.setattr(MP, "_DMA_GATHER_MIN_ROWS", 0)
+    assert _same(fused, MP.window_group_bucket_sums(table, digits, nb))
 
 
 # ---------------------------------------------------------------------------

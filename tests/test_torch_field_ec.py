@@ -101,6 +101,19 @@ def test_field26_header_constants_match_common():
     assert want["p"][0] == 1 and want["n0"] == (1 << 26) - 1      # so q = -t mod 2^26
 
 
+def test_field26_header_d_matches_common():
+    """csrc/field26.cuh's digits of d*R mod p, the second input of the carry
+    scan's product by d (csrc/ec26.cuh::full_add26_x4), are the column of
+    make_consts_array that csrc/field.cuh's 13-bit full add reads."""
+    path = os.path.join(os.path.dirname(TC.__file__), "..", "..", "csrc", "field26.cuh")
+    body = re.search(r"d_d\(int i\) \{\s*constexpr uint32_t v\[MSM_LD\] = \{([^}]*)\}",
+                     open(path).read()).group(1)
+    got = [int(v, 16) for v in body.replace(",", " ").split()]
+    assert got == TC.make_digit_consts()["d"]
+    limbs = TC.make_consts_array()[:, TC.CONST_D].tolist()
+    assert got == [limbs[2 * i] | (limbs[2 * i + 1] << 13) for i in range(10)]
+
+
 def _extreme_operands(rng, case: str):
     """(x, y) limbs for test_mont_mul_at_extremes: one operand at an extreme
     value (all B lanes), the other random below 9p; or x = y."""

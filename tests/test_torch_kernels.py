@@ -171,7 +171,7 @@ def test_horner_fold_identity_padding():
 def test_library_hash_covers_the_headers_it_includes():
     """A library's name hashes its source and the headers that source
     includes, so an edit to the probes' header rebuilds only the probes."""
-    assert set(_build._sources("scan")) == {"scan.cu", "scan.cuh", "ec.cuh", "field.cuh",
+    assert set(_build._sources("scan")) == {"scan.cu", "scan.cuh", "ec26.cuh", "field.cuh",
                                             "field26.cuh"}
     assert "probe_scan.cuh" not in _build._sources("scan_variants")
     assert {"probe_scan.cuh", "scan.cuh"} <= set(_build._sources("probe_move"))

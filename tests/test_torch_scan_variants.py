@@ -5,7 +5,10 @@ package on the CPU, bit for bit (tolerance 0: integer arithmetic).
   msm_scan_pret, msm_scan_sames, msm_scan_signed, msm_scan_rm_sames_q,
   msm_scan_fused, extract_reconstruct_rows) against the JAX kernels in
   interpret mode, at 16 fragments (limb-major blocks of 8 or 16) and 128
-  extraction rows holding every one of the 32 bit patterns.
+  extraction rows holding every one of the 32 bit patterns; and the two
+  scans that read the table by index (msm_scan_table_sames,
+  msm_scan_table_signed) against the JAX scans of the rows that the JAX
+  pipeline gathers for them (msm_scan_rm_sames, msm_scan_rm_signed).
 - window_group_bucket_sums in each configuration of the module's switches
   against one eager JAX run of the default configuration at n=128, c=8,
   seed 79 (bucket ends in every residue class mod 4, so the quarter store
@@ -143,6 +146,43 @@ def test_msm_scan_fused(tables):
                                torch.from_numpy(keys)))
 
 
+def _table_scan_inputs(seed: int, table: np.ndarray):
+    """Random table rows pidx [NF, K] (entry order), the rows they gather
+    [NF, K, TWR], and the step words of _step_words."""
+    rng, keys, sames, sign = _step_words(seed)
+    pidx = rng.integers(0, table.shape[0], size=(NF, S.K)).astype(np.int32)
+    return pidx, table[pidx], sames, sign
+
+
+def _both_layouts(pidx: np.ndarray):
+    """pidx_t [K, NF] as a contiguous array and as the transposed view of
+    the [NF, K] entry-order indices, which the pipeline passes."""
+    view = torch.from_numpy(pidx).T
+    assert not view.is_contiguous()
+    return view.contiguous(), view
+
+
+def test_msm_scan_table_sames(tables):
+    """Rows of the doubled table read by index: the JAX package gathers them
+    (dma_row_gather) and scans them with msm_scan_rm_sames."""
+    pidx, rows, sames, _ = _table_scan_inputs(40, tables[0])
+    want = JS.msm_scan_rm_sames(jnp.asarray(rows), jnp.asarray(sames), interpret=True)
+    for pidx_t in _both_layouts(pidx):
+        _eq(want, S.msm_scan_table_sames(from_numpy_u32(tables[0]), pidx_t,
+                                         torch.from_numpy(sames)))
+
+
+def test_msm_scan_table_signed(tables):
+    """Rows of the single table read by index, the sign in bit 1: the JAX
+    package gathers them and scans them with msm_scan_rm_signed."""
+    pidx, rows, sames, sign = _table_scan_inputs(41, tables[1])
+    bits = sames | (sign << 1)
+    want = JS.msm_scan_rm_signed(jnp.asarray(rows), jnp.asarray(bits), interpret=True)
+    for pidx_t in _both_layouts(pidx):
+        _eq(want, S.msm_scan_table_signed(from_numpy_u32(tables[1]), pidx_t,
+                                          torch.from_numpy(bits)))
+
+
 def test_extract_reconstruct_rows(tables):
     """128 rows, each of the 32 bit patterns four times, in a shuffled
     order; the base rows' padding words are not zero (the output's are)."""
@@ -180,7 +220,7 @@ def jax_buckets():
 #: Configuration -> (module switches, fused, the wrappers its branch calls,
 #: equal bit for bit (else as points)).
 CONFIGS = {
-    "default": ({}, False, {"scan"}, True),
+    "default": ({}, False, {"scan_fused"}, True),
     "pret": ({"_SCAN_LAYOUT": "pret"}, False, {"scan_pret"}, True),
     "pret_keys": ({"_SCAN_LAYOUT": "pret", "_SCAN_SAMES": False}, False, {"scan_pret_keys"},
                   True),
@@ -188,15 +228,16 @@ CONFIGS = {
     "quarter_store_dma_extract": ({"_SCAN_QSTORE": True, "_DMA_EXTRACT": True}, False,
                                   {"scan_q", "extract_reconstruct", "gather"}, True),
     "fused": ({}, True, {"scan_fused"}, True),
-    "dma_extract": ({"_DMA_EXTRACT": True}, False, {"scan", "gather"}, True),
-    "dma_gather_from_0_rows": ({"_DMA_GATHER_MIN_ROWS": 0}, False, {"scan", "gather"}, True),
-    "single_rm": ({"_SINGLE_TABLE": True}, False, {"scan_signed"}, False),
+    "dma_extract": ({"_DMA_EXTRACT": True}, False, {"scan_fused", "gather"}, True),
+    "dma_gather_from_0_rows": ({"_SCAN_QSTORE": True, "_DMA_GATHER_MIN_ROWS": 0}, False,
+                               {"scan_q", "extract_reconstruct", "gather"}, True),
+    "single_rm": ({"_SINGLE_TABLE": True}, False, {"scan_table_signed"}, False),
     "single_pret": ({"_SINGLE_TABLE": True, "_SCAN_LAYOUT": "pret"}, False,
                     {"scan_pret_signed"}, False),
-    "sort_i64": ({"_SORT_I64": True}, False, {"scan"}, False),
+    "sort_i64": ({"_SORT_I64": True}, False, {"scan_fused"}, False),
 }
 SCANS = {"scan", "scan_signed", "scan_keys", "scan_pret_keys", "scan_pret", "scan_pret_signed",
-         "scan_q", "scan_fused"}
+         "scan_q", "scan_fused", "scan_table", "scan_table_signed"}
 
 
 def _points_of(rows: np.ndarray):
@@ -225,6 +266,22 @@ def test_bucket_sums_configuration_matches_jax(jax_buckets, monkeypatch, name):
         _eq(jax_buckets["buckets"], got)
     else:
         assert _points_of(to_numpy_u32(got)) == _points_of(jax_buckets["buckets"])
+
+
+def test_default_reads_rows_in_the_scan(jax_buckets, monkeypatch):
+    """The doubled-table default copies no row into scan order: with the
+    gather kernel and the index path made to raise, and the gather gate
+    open at 0 rows, its bucket rows still equal the JAX default's."""
+    def refuse(*args):
+        raise AssertionError("the default copied the rows into scan order")
+
+    monkeypatch.setattr(MP, "row_gather", refuse)
+    monkeypatch.setattr(MP, "_gathered_rows", refuse)
+    monkeypatch.setattr(MP, "_DMA_GATHER_MIN_ROWS", 0)
+    table = MP.build_prod_table(from_numpy_u32(jax_buckets["coords"]))
+    digits = decompose_scalars_signed(from_numpy_u32(jax_buckets["sc"]), CFG)
+    _eq(jax_buckets["buckets"],
+        MP.window_group_bucket_sums(table, digits.T.contiguous(), CFG.num_buckets))
 
 
 def test_fused_refuses_the_single_table(jax_buckets):

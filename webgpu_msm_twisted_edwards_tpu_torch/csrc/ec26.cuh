@@ -1,0 +1,171 @@
+// Extended twisted Edwards point arithmetic in the 26-bit digits of
+// csrc/field26.cuh, for kernels that keep a point in registers through a
+// long dependent chain: the scans (csrc/scan.cuh) and the carry scan
+// (csrc/scan.cu).
+//
+// madd26 and full_add26_x4 repeat ec.cuh's madd and full_add (ec.py::madd,
+// ec.py::full_add) operation for operation, in the same order, on digits:
+// field26.cuh says why each digit operation gives the 13-bit one's residue,
+// so on normalized inputs these formulas give ec.cuh's packed rows bit for
+// bit.  Unlike ec.cuh's formulas, which cicc (CUDA 12.8) cannot inline into
+// a loop kernel, these are inlined: no call and no stack frame.
+#pragma once
+
+#include "field26.cuh"
+
+namespace msm {
+
+// A point in 26-bit digits.
+struct PtD {
+  Fd x, y, t, z;
+};
+
+// a or b, word by word: a select of whole structs would keep both in local
+// memory and select an address.
+__device__ __forceinline__ PtD ptd_select(bool take_a, const PtD& a, const PtD& b) {
+  PtD r;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) {
+    r.x.v[i] = take_a ? a.x.v[i] : b.x.v[i];
+    r.y.v[i] = take_a ? a.y.v[i] : b.y.v[i];
+    r.t.v[i] = take_a ? a.t.v[i] : b.t.v[i];
+    r.z.v[i] = take_a ? a.z.v[i] : b.z.v[i];
+  }
+  return r;
+}
+
+__device__ __forceinline__ PtD ptd_identity() {
+  PtD p;
+  p.x = fd_zero();
+  p.y = fd_one();
+  p.t = fd_zero();
+  p.z = fd_one();
+  return p;
+}
+
+// ec.cuh::madd (ec.py::madd) in 26-bit digits, the same operations in the
+// same order: p1 + a table point in cached form (d2 = y2-x2, s2 = y2+x2,
+// td2 = 2*d*t2).
+__device__ __forceinline__ PtD madd26(const PtD& p1, const Fd& d2, const Fd& s2, const Fd& td2) {
+  const Fd d1 = fd_sub_lazy(p1.y, p1.x);
+  const Fd s1 = fd_add_lazy(p1.x, p1.y);
+  const Fd dd = fd_add_lazy(p1.z, p1.z);
+  const Fd a = mont26(d1, d2);
+  const Fd b = mont26(s1, s2);
+  const Fd cc = mont26(p1.t, td2);
+  const Fd e = fd_sub_lazy(b, a);
+  const Fd f = fd_sub_lazy(dd, cc);
+  const Fd g = fd_add_lazy(dd, cc);
+  const Fd h = fd_add_lazy(b, a);
+  PtD r;
+  r.x = mont26(e, f);
+  r.y = mont26(g, h);
+  r.t = mont26(e, h);
+  r.z = mont26(f, g);
+  return r;
+}
+
+// Lane k's a, in each group of four neighbouring lanes (every lane of the
+// warp takes part).
+__device__ __forceinline__ Fd fd_shfl4(const Fd& a, int k) {
+  Fd r;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) r.v[i] = __shfl_sync(0xFFFFFFFFu, a.v[i], k, 4);
+  return r;
+}
+
+// The q-th of four values, word by word (q is not known at compile time, so
+// an array indexed by it would go to local memory).
+__device__ __forceinline__ Fd fd_pick4(int q, const Fd& a, const Fd& b, const Fd& c,
+                                       const Fd& d) {
+  Fd r;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i)
+    r.v[i] = q == 0 ? a.v[i] : q == 1 ? b.v[i] : q == 2 ? c.v[i] : d.v[i];
+  return r;
+}
+
+// ec.cuh::full_add (ec.py::full_add), the unified add of two arbitrary
+// points with the product by d (cc1) lazy, on a group of four neighbouring
+// lanes that hold the same p1 and p2.  Its 9 products are two sets of four
+// independent ones and cc1 between them: lane q computes product q of each
+// set, the group exchanges the four results by shuffles, and every lane
+// returns the sum.  Each product takes the operands it takes in full_add,
+// and the lazy operations are full_add's, in its order, so the bits are
+// the same; the dependent chain is 3 products long, not 9.
+__device__ __forceinline__ PtD full_add26_x4(const PtD& p1, const PtD& p2, int q) {
+  const Fd d1 = fd_sub_lazy(p1.y, p1.x);
+  const Fd d2 = fd_sub_lazy(p2.y, p2.x);
+  const Fd s1 = fd_add_lazy(p1.x, p1.y);
+  const Fd s2 = fd_add_lazy(p2.x, p2.y);
+  // a = d1*d2, b = s1*s2, t12 = t1*t2, z12 = z1*z2.
+  const Fd m = mont26(fd_pick4(q, d1, s1, p1.t, p1.z), fd_pick4(q, d2, s2, p2.t, p2.z));
+  const Fd a = fd_shfl4(m, 0);
+  const Fd b = fd_shfl4(m, 1);
+  const Fd t12 = fd_shfl4(m, 2);
+  const Fd z12 = fd_shfl4(m, 3);
+  const Fd cc1 = mont26(t12, fd_d());
+  const Fd cc = fd_add_lazy(cc1, cc1);
+  const Fd dd = fd_add_lazy(z12, z12);
+  const Fd e = fd_sub_lazy(b, a);
+  const Fd f = fd_sub_lazy(dd, cc);
+  const Fd g = fd_add_lazy(dd, cc);
+  const Fd h = fd_add_lazy(b, a);
+  // x = e*f, y = g*h, t = e*h, z = f*g.
+  const Fd r = mont26(fd_pick4(q, e, g, e, f), fd_pick4(q, f, h, h, g));
+  PtD out;
+  out.x = fd_shfl4(r, 0);
+  out.y = fd_shfl4(r, 1);
+  out.t = fd_shfl4(r, 2);
+  out.z = fd_shfl4(r, 3);
+  return out;
+}
+
+// One coordinate's MSM_LP packed words (ec.py::pt_pack) into w.
+__device__ __forceinline__ void pack_digits(const Fd& a, uint32_t* w) {
+#pragma unroll
+  for (int i = 0; i < MSM_LP; ++i) w[i] = fd_pack_word(a.v[i]);
+}
+
+// One packed point row (ec.py::pt_unpack; 16-byte aligned, its 40 used
+// words read with 16-byte loads) as digits.  Packed rows hold normalized
+// limbs, so word i is digit i spread over bits 0..12 and 16..28.
+__device__ __forceinline__ PtD ptd_load_packed(const uint32_t* row) {
+  uint32_t w[4 * MSM_LP];
+  const uint4* r4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int i = 0; i < MSM_LP; ++i) {
+    const uint4 q = r4[i];
+    w[4 * i] = q.x;
+    w[4 * i + 1] = q.y;
+    w[4 * i + 2] = q.z;
+    w[4 * i + 3] = q.w;
+  }
+  PtD p;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) {
+    p.x.v[i] = fd_unpack_word(w[i]);
+    p.y.v[i] = fd_unpack_word(w[MSM_LP + i]);
+    p.t.v[i] = fd_unpack_word(w[2 * MSM_LP + i]);
+    p.z.v[i] = fd_unpack_word(w[3 * MSM_LP + i]);
+  }
+  return p;
+}
+
+// ec.py::pt_pack of one point, written by this thread as a whole MSM_TW-word
+// row with 16-byte stores, the 24 padding words zero.
+__device__ __forceinline__ void ptd_store_packed(uint32_t* row, const PtD& p) {
+  uint32_t w[4 * MSM_LP];
+  pack_digits(p.x, w);
+  pack_digits(p.y, w + MSM_LP);
+  pack_digits(p.t, w + 2 * MSM_LP);
+  pack_digits(p.z, w + 3 * MSM_LP);
+  uint4* r4 = reinterpret_cast<uint4*>(row);
+#pragma unroll
+  for (int i = 0; i < MSM_LP; ++i)
+    r4[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+#pragma unroll
+  for (int i = MSM_LP; i < MSM_TW / 4; ++i) r4[i] = make_uint4(0, 0, 0, 0);
+}
+
+}  // namespace msm

@@ -1,4 +1,5 @@
-// Field arithmetic in 26-bit digits, for the scan's madd (csrc/scan.cuh).
+// Field arithmetic in 26-bit digits, for the point formulas of csrc/ec26.cuh
+// (the scans' madd, the carry scan's full add).
 //
 // An element is 10 little-endian digits of 26 bits in uint32_t, digit i =
 // limb 2i | limb 2i+1 << 13 of the 13-bit form of csrc/field.cuh: the same
@@ -25,7 +26,8 @@
 // limbs, the same words.  So a madd kept in digits from its row loads to
 // its stores gives field.cuh's madd (csrc/ec.cuh) bit for bit on normalized
 // inputs, and on the pipeline's (table rows < 5.3p, accumulators < 1.3p,
-// subtrahends < 3p) both are the JAX package's.
+// subtrahends < 3p) both are the JAX package's; the same holds for the full
+// add, whose extra product by d takes d*R mod p (< p) as its second input.
 //
 // tests/test_torch_field_ec.py reads the constants below and checks them
 // against ops/kernels/common.py.
@@ -42,7 +44,8 @@
 
 namespace msm {
 
-// p, R mod p and the headroom form of 4p, in 26-bit digits.  Functions, not
+// p, R mod p, d*R mod p (the curve's d, Montgomery form) and the headroom
+// form of 4p, in 26-bit digits.  Functions, not
 // arrays: device code may not read a namespace-scope constexpr array, and
 // with every loop unrolled each call folds to an immediate operand.
 __host__ __device__ constexpr uint32_t d_p(int i) {
@@ -55,6 +58,12 @@ __host__ __device__ constexpr uint32_t d_r(int i) {
   constexpr uint32_t v[MSM_LD] = {
       0x3ffff25, 0x1dfffff, 0x3f1c630, 0x0103fff, 0x04b2c34,
       0x3171bb6, 0x0207071, 0x23c6d17, 0x0121bce, 0x001d812};
+  return v[i];
+}
+__host__ __device__ constexpr uint32_t d_d(int i) {
+  constexpr uint32_t v[MSM_LD] = {
+      0x3f5e2f8, 0x0ffffff, 0x3d24b3f, 0x1e5ffd5, 0x03d3d4a,
+      0x3d13609, 0x318c6de, 0x1153629, 0x3d5aa80, 0x0029dc5};
   return v[i];
 }
 __host__ __device__ constexpr uint32_t d_q4(int i) {
@@ -73,6 +82,14 @@ __device__ __forceinline__ Fd fd_one() {
   Fd r;
 #pragma unroll
   for (int i = 0; i < MSM_LD; ++i) r.v[i] = d_r(i);
+  return r;
+}
+
+// d*R mod p: the Montgomery form of the curve's d.
+__device__ __forceinline__ Fd fd_d() {
+  Fd r;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) r.v[i] = d_d(i);
   return r;
 }
 
@@ -95,6 +112,11 @@ __device__ __forceinline__ Fd fd_from_limbs(const uint32_t* l) {
 // limb 2i+1 in bits 16..28).
 __device__ __forceinline__ uint32_t fd_pack_word(uint32_t d) {
   return (d & MSM_MASK) | ((d << 3) & 0xFFFF0000u);
+}
+
+// The inverse of fd_pack_word on a word of two normalized limbs.
+__device__ __forceinline__ uint32_t fd_unpack_word(uint32_t w) {
+  return (w & MSM_MASK) | ((w >> 3) & (MSM_MASK << MSM_W));
 }
 
 // Every digit < 2^26; the carry out of digit 9 (bit 260) is dropped.

@@ -2,11 +2,13 @@
 // JAX package.
 //
 // Replaces webgpu_msm_twisted_edwards_tpu/ops/pallas/scan.py::_msm_scan_body
-// and the kernels built on it: _msm_scan_rm_sames_kernel,
-// _msm_scan_rm_signed_kernel (csrc/scan.cu), and _msm_scan_kernel,
-// _msm_scan_pret_kernel, _msm_scan_sames_kernel, _msm_scan_signed_kernel,
-// _msm_scan_rm_sames_q_kernel and _msm_scan_fused_kernel
-// (csrc/scan_variants.cu).
+// and the kernels built on it: _msm_scan_fused_kernel (the main path),
+// _msm_scan_rm_sames_kernel, _msm_scan_rm_signed_kernel and the latter with
+// the row gather (ops/pallas/gather.py::_dma_gather_kernel) folded in (the
+// fixed base) in csrc/scan.cu; _msm_scan_kernel, _msm_scan_pret_kernel,
+// _msm_scan_sames_kernel, _msm_scan_signed_kernel,
+// _msm_scan_rm_sames_q_kernel and _msm_scan_rm_sames_kernel with the row
+// gather folded in, in csrc/scan_variants.cu.
 //
 // Per 64-entry fragment f and step j: acc = madd(same ? acc : identity,
 // row_j); the inclusive value after step j is stored packed, two steps per
@@ -15,7 +17,11 @@
 //   [nf, 64, 128] gather output; ROWS_PRET the limb-major
 //   [nf/lblk, 64, 64, lblk] layout, word i of step j of fragment f at
 //   ((f/lblk)*64 + j)*64*lblk + i*lblk + f%lblk; ROWS_TABLE the table row
-//   pidx_t[j, f] itself (the gather fused into the scan).
+//   pidx[j*psj + f*psf] itself (the gather fused into the scan; the index
+//   array read where it lies, [64, nf] with strides (nf, 1) or a transposed
+//   view of [nf, 64] with strides (1, 64)).  Tried on an H100 and left
+//   out: a prefetch of the next step's row into L2 made the scan slower,
+//   and loading the next step's index a step early gained nothing.
 // - MASK, where the same-segment bit comes from, out of the [64, nf] step
 //   word aux_t[j, f]: MASK_KEYS the sorted bucket key, compared with the
 //   previous step's (-1 before step 0); MASK_SAMES the hoisted bit itself;
@@ -29,7 +35,7 @@
 // 244 bytes read and 256 written, 128 with STORE 4).
 // Design: one thread per fragment, the accumulator in registers for all 64
 // steps, in the 26-bit digits of csrc/field26.cuh from the row loads to the
-// stores: the madd (madd26 below) is inlined into the loop, with no call
+// stores: the madd (madd26, csrc/ec26.cuh) is inlined into the loop, with no call
 // and no stack frame, and a product is 190 wide multiply-adds against the
 // 13-bit form's 840 32-bit ones (field26.cuh says why the words are the
 // same).  Row-major and table rows are read with 16-byte loads of their 60
@@ -46,7 +52,7 @@
 
 #include <cuda_runtime.h>
 
-#include "field26.cuh"
+#include "ec26.cuh"
 
 namespace msm {
 
@@ -65,56 +71,6 @@ constexpr int SCAN_MIN_BLOCKS = 8;
 // quarter-warp's 16-byte shared stores fall on distinct banks.
 constexpr int SCAN_SLOT = 44;
 
-// A point in 26-bit digits.
-struct PtD {
-  Fd x, y, t, z;
-};
-
-// a or b, word by word: a select of whole structs would keep both in local
-// memory and select an address.
-__device__ __forceinline__ PtD ptd_select(bool take_a, const PtD& a, const PtD& b) {
-  PtD r;
-#pragma unroll
-  for (int i = 0; i < MSM_LD; ++i) {
-    r.x.v[i] = take_a ? a.x.v[i] : b.x.v[i];
-    r.y.v[i] = take_a ? a.y.v[i] : b.y.v[i];
-    r.t.v[i] = take_a ? a.t.v[i] : b.t.v[i];
-    r.z.v[i] = take_a ? a.z.v[i] : b.z.v[i];
-  }
-  return r;
-}
-
-__device__ __forceinline__ PtD ptd_identity() {
-  PtD p;
-  p.x = fd_zero();
-  p.y = fd_one();
-  p.t = fd_zero();
-  p.z = fd_one();
-  return p;
-}
-
-// ec.cuh::madd (ec.py::madd) in 26-bit digits, the same operations in the
-// same order: p1 + a table point in cached form (d2 = y2-x2, s2 = y2+x2,
-// td2 = 2*d*t2).
-__device__ __forceinline__ PtD madd26(const PtD& p1, const Fd& d2, const Fd& s2, const Fd& td2) {
-  const Fd d1 = fd_sub_lazy(p1.y, p1.x);
-  const Fd s1 = fd_add_lazy(p1.x, p1.y);
-  const Fd dd = fd_add_lazy(p1.z, p1.z);
-  const Fd a = mont26(d1, d2);
-  const Fd b = mont26(s1, s2);
-  const Fd cc = mont26(p1.t, td2);
-  const Fd e = fd_sub_lazy(b, a);
-  const Fd f = fd_sub_lazy(dd, cc);
-  const Fd g = fd_add_lazy(dd, cc);
-  const Fd h = fd_add_lazy(b, a);
-  PtD r;
-  r.x = mont26(e, f);
-  r.y = mont26(g, h);
-  r.t = mont26(e, h);
-  r.z = mont26(f, g);
-  return r;
-}
-
 // The cached form (y-x, y+x, 2*d*t) of one table row, its first 3*MSM_L
 // words (one limb a word), read with 16-byte loads, as digits.
 __device__ __forceinline__ void load_cached26(const uint32_t* row, Fd& d2, Fd& s2, Fd& td2) {
@@ -131,12 +87,6 @@ __device__ __forceinline__ void load_cached26(const uint32_t* row, Fd& d2, Fd& s
   d2 = fd_from_limbs(w);
   s2 = fd_from_limbs(w + MSM_L);
   td2 = fd_from_limbs(w + 2 * MSM_L);
-}
-
-// One coordinate's MSM_LP packed words (ec.py::pt_pack) into w.
-__device__ __forceinline__ void pack_digits(const Fd& a, uint32_t* w) {
-#pragma unroll
-  for (int i = 0; i < MSM_LP; ++i) w[i] = fd_pack_word(a.v[i]);
 }
 
 // The warp's store of one step: for r < rows_valid, row r of the warp's
@@ -173,9 +123,9 @@ __device__ __forceinline__ void warp_store_rows(const PtD& p, uint32_t* slot,
 
 template <int ROWS, int MASK, int STORE>
 __global__ void __launch_bounds__(SCAN_THREADS, SCAN_MIN_BLOCKS)
-scan_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ pidx_t,
-            const int32_t* __restrict__ aux_t, uint32_t* __restrict__ out, long long nf,
-            long long lblk) {
+scan_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ pidx, long long psj,
+            long long psf, const int32_t* __restrict__ aux_t, uint32_t* __restrict__ out,
+            long long nf, long long lblk) {
   __shared__ __align__(16) uint32_t slots[SCAN_THREADS * SCAN_SLOT];
   const long long warp0 = blockIdx.x * (long long)SCAN_THREADS + (threadIdx.x & ~31);
   const long long f = min(warp0 + (threadIdx.x & 31), nf - 1);
@@ -190,6 +140,7 @@ scan_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ pidx_
   if constexpr (ROWS == ROWS_PRET) frag = rows + (f / lblk) * (MSM_K * 64 * lblk) + f % lblk;
   constexpr long long fstride = (MSM_K / STORE) * 2 * MSM_TW;
   uint32_t* dst0 = out + warp0 * fstride;
+  const int32_t* fidx = pidx + f * psf;
 #pragma unroll 1
   for (int j = 0; j < MSM_K; ++j) {
     Fd d2, s2, td2;
@@ -202,9 +153,8 @@ scan_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ pidx_
       s2 = fd_from_limbs(w + MSM_L);
       td2 = fd_from_limbs(w + 2 * MSM_L);
     } else {
-      const uint32_t* row = ROWS == ROWS_RM
-                                ? frag + j * MSM_TWR
-                                : rows + (long long)pidx_t[j * nf + f] * MSM_TWR;
+      const uint32_t* row = ROWS == ROWS_RM ? frag + j * MSM_TWR
+                                            : rows + (long long)fidx[j * psj] * MSM_TWR;
       load_cached26(row, d2, s2, td2);
     }
     const int aux = aux_t[j * nf + f];
@@ -235,17 +185,19 @@ scan_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ pidx_
   }
 }
 
-// rows: as ROWS (the table for ROWS_TABLE); pidx_t: [64, nf] i32 table rows
-// (ROWS_TABLE only, else null); aux_t: [64, nf] i32; out: [nf, 64/STORE, 128]
-// u32; lblk: the limb-major block (ROWS_PRET only).
+// rows: as ROWS (the table for ROWS_TABLE); pidx: the table row of step j of
+// fragment f at pidx[j*psj + f*psf], i32 (ROWS_TABLE only, else null); aux_t:
+// [64, nf] i32; out: [nf, 64/STORE, 128] u32; lblk: the limb-major block
+// (ROWS_PRET only).
 template <int ROWS, int MASK, int STORE>
-static int launch_scan(const void* rows, const void* pidx_t, const void* aux_t, void* out,
-                       long long nf, long long lblk, void* stream) {
+static int launch_scan(const void* rows, const void* pidx, long long psj, long long psf,
+                       const void* aux_t, void* out, long long nf, long long lblk,
+                       void* stream) {
   if (nf > 0) {
     const long long blocks = (nf + SCAN_THREADS - 1) / SCAN_THREADS;
     scan_kernel<ROWS, MASK, STORE><<<blocks, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)rows, (const int32_t*)pidx_t, (const int32_t*)aux_t, (uint32_t*)out,
-        nf, lblk);
+        (const uint32_t*)rows, (const int32_t*)pidx, psj, psf, (const int32_t*)aux_t,
+        (uint32_t*)out, nf, lblk);
   }
   return (int)cudaGetLastError();
 }

@@ -8,16 +8,23 @@ The scan variants are the JAX package's, one recurrence with three choices
 (`_scan_plain`, and the template of csrc/scan.cuh):
 
     wrapper               rows                mask            stored steps
-    msm_scan_rm_sames     row-major           hoisted bits    all (the main path)
-    msm_scan_rm_signed    row-major, single   bits + sign     all (fixed base)
+    msm_scan_fused        table by index      key compare     all (the main path)
+    msm_scan_table_signed table by index,     bits + sign     all (fixed base)
+                          single
+    msm_scan_rm_sames     row-major           hoisted bits    all
+    msm_scan_rm_signed    row-major, single   bits + sign     all
     msm_scan              row-major           key compare     all
     msm_scan_pret         limb-major          key compare     all
     msm_scan_sames        limb-major          hoisted bits    all
     msm_scan_signed       limb-major, single  bits + sign     all
     msm_scan_rm_sames_q   row-major           hoisted bits    4i+2, 4i+3
-    msm_scan_fused        table by index      key compare     all
+    msm_scan_table_sames  table by index      hoisted bits    all
 
-Kernels: csrc/scan.cu (the first two and the carry scan) and
+"Table by index" reads each entry's row from the table inside the scan, with
+no gathered copy: the JAX package's row gather (ops/pallas/gather.py::
+dma_row_gather) folded into the scan that reads its output.
+
+Kernels: csrc/scan.cu (the first four and the carry scan) and
 csrc/scan_variants.cu, replacing the JAX package's ops/pallas/scan.py::
 _msm_scan_rm_sames_kernel, _msm_scan_rm_signed_kernel, _msm_scan_kernel,
 _msm_scan_pret_kernel, _msm_scan_sames_kernel, _msm_scan_signed_kernel,
@@ -143,10 +150,30 @@ def msm_scan_rm_sames_q_plain(rows: torch.Tensor, sames_t: torch.Tensor) -> torc
     return _scan_plain(_rm_reader(rows), sames_t, "sames", store=4)
 
 
+def _table_reader(table: torch.Tensor, pidx_t: torch.Tensor):
+    """Step reader of table rows by index: step j of fragment f reads row
+    pidx_t[j, f]."""
+    return lambda j: u32(table[pidx_t[j].to(torch.int64), 0:3 * L]).T
+
+
 def msm_scan_fused_plain(table: torch.Tensor, pidx_t: torch.Tensor,
                          keys_t: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`msm_scan_fused`."""
-    return _scan_plain(lambda j: u32(table[pidx_t[j].to(torch.int64), 0:3 * L]).T, keys_t, "keys")
+    return _scan_plain(_table_reader(table, pidx_t), keys_t, "keys")
+
+
+def msm_scan_table_sames_plain(table: torch.Tensor, pidx_t: torch.Tensor,
+                               sames_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan_table_sames`: the rows indexed, then
+    the plain scan of :func:`msm_scan_rm_sames`."""
+    return _scan_plain(_table_reader(table, pidx_t), sames_t, "sames")
+
+
+def msm_scan_table_signed_plain(table: torch.Tensor, pidx_t: torch.Tensor,
+                                bits_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`msm_scan_table_signed`: the rows indexed, then
+    the plain scan of :func:`msm_scan_rm_signed`."""
+    return _scan_plain(_table_reader(table, pidx_t), bits_t, "signed")
 
 
 def _launch_rm(kernel: str, lib: str, fn: str, rows: torch.Tensor, aux_t: torch.Tensor,
@@ -169,6 +196,48 @@ def _launch_pret(kernel: str, fn: str, rows_t: torch.Tensor, aux_t: torch.Tensor
     out = torch.empty((nf, K // 2, 2 * TW), dtype=torch.int32, device=rows_t.device)
     _build.launch(kernel, "scan_variants", fn, rows_t, aux_t, out, nf, lblk)
     return out
+
+
+def _launch_table(kernel: str, lib: str, fn: str, table: torch.Tensor, pidx_t: torch.Tensor,
+                  aux_t: torch.Tensor) -> torch.Tensor:
+    """Launch a scan that reads table rows by index.  pidx_t is passed where
+    it lies, with its strides: the pipeline's is a transposed view."""
+    nf = pidx_t.shape[-1]
+    table = _build.check(table, torch.int32, (-1, TWR), "table")
+    if pidx_t.dtype != torch.int32 or tuple(pidx_t.shape) != (K, nf):
+        raise ValueError(f"pidx_t: expected int32 [{K}, NF], got {pidx_t.dtype} "
+                         f"{tuple(pidx_t.shape)}")
+    aux_t = _build.check(aux_t, torch.int32, (K, nf), "aux_t")
+    out = torch.empty((nf, K // 2, 2 * TW), dtype=torch.int32, device=table.device)
+    _build.launch(kernel, lib, fn, table, pidx_t, *pidx_t.stride(), aux_t, out, nf)
+    return out
+
+
+def msm_scan_table_sames(table: torch.Tensor, pidx_t: torch.Tensor,
+                         sames_t: torch.Tensor) -> torch.Tensor:
+    """As :func:`msm_scan_rm_sames`, reading step j of fragment f from row
+    pidx_t[j, f] of the doubled table (table [ns, TWR] int32; pidx_t [K, NF]
+    int32 rows in [0, ns), of any strides: the kernel reads the indices
+    where they lie): the row gather folded into the scan, so no gathered
+    copy of the rows is made.  Launches csrc/scan_variants.cu on CUDA
+    tensors; CPU tensors take the plain version."""
+    _build.capture("scan_table", table, pidx_t, sames_t)
+    if not _build.on_cuda(table, pidx_t, sames_t):
+        return msm_scan_table_sames_plain(table, pidx_t, sames_t)
+    return _launch_table("scan_table", "scan_variants", "msm_scan_table_sames", table, pidx_t,
+                         sames_t)
+
+
+def msm_scan_table_signed(table: torch.Tensor, pidx_t: torch.Tensor,
+                          bits_t: torch.Tensor) -> torch.Tensor:
+    """As :func:`msm_scan_rm_signed`, reading rows of the single table by
+    index as :func:`msm_scan_table_sames` does.  Launches csrc/scan.cu on
+    CUDA tensors; CPU tensors take the plain version."""
+    _build.capture("scan_table_signed", table, pidx_t, bits_t)
+    if not _build.on_cuda(table, pidx_t, bits_t):
+        return msm_scan_table_signed_plain(table, pidx_t, bits_t)
+    return _launch_table("scan_table_signed", "scan", "msm_scan_table_signed", table, pidx_t,
+                         bits_t)
 
 
 def msm_scan_rm_sames(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tensor:
@@ -255,19 +324,12 @@ def msm_scan_rm_sames_q(rows: torch.Tensor, sames_t: torch.Tensor) -> torch.Tens
 def msm_scan_fused(table: torch.Tensor, pidx_t: torch.Tensor, keys_t: torch.Tensor) -> torch.Tensor:
     """As :func:`msm_scan`, reading step j of fragment f from table row
     pidx_t[j, f] (table [ns, TWR] int32, pidx_t [K, NF] int32 rows in
-    [0, ns)): the gather fused into the scan.  Launches
-    csrc/scan_variants.cu on CUDA tensors; CPU tensors take the plain
-    version."""
+    [0, ns), of any strides): the gather fused into the scan.  Launches
+    csrc/scan.cu on CUDA tensors; CPU tensors take the plain version."""
     _build.capture("scan_fused", table, pidx_t, keys_t)
     if not _build.on_cuda(table, pidx_t, keys_t):
         return msm_scan_fused_plain(table, pidx_t, keys_t)
-    nf = pidx_t.shape[1]
-    table = _build.check(table, torch.int32, (-1, TWR), "table")
-    pidx_t = _build.check(pidx_t, torch.int32, (K, nf), "pidx_t")
-    keys_t = _build.check(keys_t, torch.int32, (K, nf), "keys_t")
-    out = torch.empty((nf, K // 2, 2 * TW), dtype=torch.int32, device=table.device)
-    _build.launch("scan_fused", "scan_variants", "msm_scan_fused", table, pidx_t, keys_t, out, nf)
-    return out
+    return _launch_table("scan_fused", "scan", "msm_scan_fused", table, pidx_t, keys_t)
 
 
 # ---------------------------------------------------------------------------

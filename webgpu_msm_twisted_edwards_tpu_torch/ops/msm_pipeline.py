@@ -9,22 +9,24 @@ Port of the JAX package's ops/msm_pipeline.py:
                         decompose_scalars_signed (torch) the signed digits.
     2. per window group bucket sums (window_group_bucket_sums):
                         a sort of (bucket key, signed row) per window;
-                        bucket_counts (kernel); row_gather (kernel) or plain
-                        indexing into sorted order; a fragment scan (kernel,
-                        one of the variants of ops/kernels/scan.py); the
-                        carry scan seg_carry_scan (kernels); extraction at
-                        bucket ends through masked_add_rows (kernel), or
-                        extract_reconstruct_rows (kernel) after the
-                        quarter-store scan.
+                        bucket_counts (kernel); a fragment scan (kernel, one
+                        of the variants of ops/kernels/scan.py) that reads
+                        the table rows by index, or under the quarter store
+                        and the limb-major layout scans rows that row_gather
+                        (kernel) or plain indexing copied into sorted order
+                        first; the carry scan seg_carry_scan (kernels);
+                        extraction at bucket ends through masked_add_rows
+                        (kernel), or extract_reconstruct_rows (kernel) after
+                        the quarter-store scan.
     3. bpr (kernels) to window sums, and horner_fold (kernel) to the total.
 
 The switches below select among the JAX package's configurations of step 2.
 Each is read from its environment variable once, at import, with the JAX
 package's name and default, into a module attribute that the pipeline reads
 at call time, so a caller may also set the attribute.  With none set, the
-pipeline runs the doubled table, the row-major scan input, hoisted
-same-segment bits, the stable two-operand sort and the row-gather kernel
-from _DMA_GATHER_MIN_ROWS rows.
+pipeline runs the doubled table, the row-major scan input (read by index
+from the table inside the scan, keys compared in the kernel) and the stable
+two-operand sort.
 
 window_group_bucket_sums also serves the fixed-base path (ops/precompute.py):
 given table_base, the digits are one block of a merged window-major single
@@ -56,11 +58,10 @@ from .kernels.scan import (
     keys_to_sames,
     msm_scan_fused,
     msm_scan_pret,
-    msm_scan_rm_sames,
     msm_scan_rm_sames_q,
-    msm_scan_rm_signed,
     msm_scan_sames,
     msm_scan_signed,
+    msm_scan_table_signed,
     seg_carry_scan,
 )
 
@@ -68,14 +69,16 @@ from .kernels.scan import (
 #: (msm_scan_sames); "0" compares the keys in the kernel (msm_scan_pret).
 _SCAN_SAMES = os.environ.get("MSM_SCAN_SAMES", "1") == "1"
 #: MSM_SINGLE_TABLE: an n-row table without negations; the scan applies the
-#: digit signs (msm_scan_rm_signed, msm_scan_signed).
+#: digit signs (msm_scan_table_signed, msm_scan_signed).
 _SINGLE_TABLE = os.environ.get("MSM_SINGLE_TABLE", "0") == "1"
-#: MSM_SCAN_LAYOUT: "rm" feeds the row-major gather output to the scan;
-#: "pret" gathers by indexing and permutes the rows into the limb-major
+#: MSM_SCAN_LAYOUT: "rm" scans the rows in row-major order (read by index
+#: from the table, or gathered first under the quarter store); "pret"
+#: gathers by indexing and permutes the rows into the limb-major
 #: [NF//lblk, K, 64, lblk] layout first.
 _SCAN_LAYOUT = os.environ.get("MSM_SCAN_LAYOUT", "rm")
-#: MSM_DMA_GATHER: the row-major path gathers on the row-gather kernel from
-#: _DMA_GATHER_MIN_ROWS rows per window group; "0" always indexes.
+#: MSM_DMA_GATHER: the quarter store (the one row-major scan that reads
+#: gathered rows) gathers on the row-gather kernel from _DMA_GATHER_MIN_ROWS
+#: rows per window group; "0" always indexes.
 _DMA_GATHER = os.environ.get("MSM_DMA_GATHER", "1") == "1"
 #: MSM_DMA_EXTRACT: the extraction gathers (scan rows, scan-input rows,
 #: carries) go through the row-gather kernel instead of indexing.
@@ -89,7 +92,7 @@ _SORT_I64 = os.environ.get("MSM_SORT_I64", "0") == "1"
 #: (extract_reconstruct_rows).
 _SCAN_QSTORE = os.environ.get("MSM_SCAN_QSTORE", "0") == "1"
 #: MSM_DMA_GATHER_MIN_ROWS: from this many gathered rows per window group
-#: the row-major path gathers on the row-gather kernel.  The JAX package's
+#: the quarter store gathers on the row-gather kernel.  The JAX package's
 #: gate value, kept so the two paths split where they do there; its
 #: re-derivation on the H100 is queued in ROADMAP.md.
 _DMA_GATHER_MIN_ROWS = int(os.environ.get("MSM_DMA_GATHER_MIN_ROWS", 1 << 21))
@@ -126,6 +129,18 @@ def _sort_entries(keys: torch.Tensor, idxs: torch.Tensor):
     return keys_s, torch.gather(idxs, 1, perm)
 
 
+def _gathered_rows(table: torch.Tensor, flat_pidx: torch.Tensor, nf: int,
+                   total: int) -> torch.Tensor:
+    """The table rows of the entries in sorted order, [NF, K, TWR]: on the
+    row-gather kernel from _DMA_GATHER_MIN_ROWS entries (total, padding
+    not counted), else by indexing."""
+    if _DMA_GATHER and total >= _DMA_GATHER_MIN_ROWS:
+        rows = row_gather(table, flat_pidx.reshape(nf, K).T.contiguous())
+    else:
+        rows = table[flat_pidx.to(torch.int64)]
+    return rows.reshape(nf, K, TWR)
+
+
 def _pret_rows(table: torch.Tensor, flat_pidx: torch.Tensor, nf: int) -> torch.Tensor:
     """Gathered rows in the limb-major [NF//lblk, K, 64, lblk] layout: word i
     of entry f*K + j at [f // lblk, j, i, f % lblk], lblk = LBLK halved until
@@ -151,8 +166,22 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor, nb: in
     past the table's end (zero digits, so the sentinel bucket) read its last
     row, as the JAX package's clamping gather does, and are never extracted.
 
-    fused=True runs the gather inside the scan (msm_scan_fused, doubled
-    table only).  The module's switches pick the other configurations."""
+    The row-major scans other than the quarter store's read each entry's
+    table row by index inside the scan, so no gathered copy of the rows is
+    made: on the doubled table msm_scan_fused, which compares the keys in
+    the kernel, on the single table msm_scan_table_signed.  The JAX package
+    keeps its fused scan as an experiment, measured slower on the TPU, and
+    gathers first; on an H100 the scan reads the 60 used words of each row
+    where they lie, in under half the time of a gather kernel that copies
+    whole rows and a scan that reads them back, and without the copy's
+    memory (PERF.md).  msm_scan_table_sames, which reads hoisted same bits
+    as the JAX default does, was as fast a kernel, but with the pass that
+    hoists the bits it was slower end to end.  The quarter store's extraction
+    replays steps from the scan's input rows, so it still gathers them, as
+    the limb-major layouts do.
+
+    fused=True runs msm_scan_fused (doubled table only) whatever the layout
+    switches say.  The module's switches pick the other configurations."""
     wg, n = digits_g.shape
     if table_base is not None:
         single = True
@@ -200,24 +229,16 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor, nb: in
     if single:
         bits_t = keys_to_sames(keys_t) | ((flat_pidx >> 30).reshape(nf, K).T << 1)
         flat_pidx = (flat_pidx & ((1 << 30) - 1)).clamp(max=table.shape[0] - 1)
+    # Entry f*K + j's row at [j, f]: a view, which the scans read in place.
+    pidx_t = flat_pidx.reshape(nf, K).T
     quarter_rows = None                    # the scan input, kept by the quarter store
-    if fused:
-        pidx_t = flat_pidx.reshape(nf, K).T
+    if fused or (_SCAN_LAYOUT == "rm" and not single and not _SCAN_QSTORE):
         t_scan = msm_scan_fused(table, pidx_t, keys_t)
+    elif _SCAN_LAYOUT == "rm" and single:
+        t_scan = msm_scan_table_signed(table, pidx_t, bits_t)
     elif _SCAN_LAYOUT == "rm":
-        if _DMA_GATHER and total >= _DMA_GATHER_MIN_ROWS:
-            rows = row_gather(table, flat_pidx.reshape(nf, K).T.contiguous())
-        else:
-            rows = table[flat_pidx.to(torch.int64)]
-        rows = rows.reshape(nf, K, TWR)
-        if single:
-            t_scan = msm_scan_rm_signed(rows, bits_t)
-        elif _SCAN_QSTORE:
-            t_scan = msm_scan_rm_sames_q(rows, keys_to_sames(keys_t))
-            quarter_rows = rows
-        else:
-            t_scan = msm_scan_rm_sames(rows, keys_to_sames(keys_t))
-        del rows
+        quarter_rows = _gathered_rows(table, flat_pidx, nf, total)
+        t_scan = msm_scan_rm_sames_q(quarter_rows, keys_to_sames(keys_t))
     else:
         rows_t = _pret_rows(table, flat_pidx, nf)
         if single:
