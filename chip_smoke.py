@@ -8,7 +8,9 @@ Phases (any failure raises and exits non-zero):
 2. build of every kernel from csrc/ (nvcc, in parallel), its seconds,
    each kernel function's registers and spills, the IMAD.WIDE.U32 count of
    the main path's scan (cuobjdump -sass), from which MONT is taken, and
-   the carry scan's stack frame and calls (none of either, or it fails);
+   the registers, stack frame and calls of the kernels that run a chain of
+   inlined point operations (INLINED: the carry scan, bpr_stage1, the
+   Horner fold; a frame or a call fails);
 3. the main path: compute_msm at 2^16 points (c=13) and at 2^20 points
    (c=16) on inputs resident on the card (points from the native oracle's
    generator, scalars from a seeded numpy generator): kernel launch counts
@@ -64,6 +66,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -127,6 +130,27 @@ def ptxas_function(lib: str, part: str) -> str:
     if len(names) != 1:
         raise AssertionError(f"{lib}: functions named like {part}: {names}")
     return names[0]
+
+
+#: (library, kernel) of the kernels whose chain of point operations is
+#: inlined (csrc/ec26.cuh): no stack frame and no call, or phase 2 fails.
+INLINED = (("scan", "ab_scan_kernel"), ("bpr", "bpr_stage1_kernel"), ("bpr", "horner_kernel"))
+
+
+def check_inlined(lib: str, kernel: str) -> None:
+    """Log a kernel's ptxas line (registers, frame, spills) and its calls in
+    SASS; raise if it has a stack frame or a call, or if cuobjdump cannot
+    show that it has none."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+
+    fn = ptxas_function(lib, kernel)
+    line = next(ln for ln in _build.ptxas_report()[lib] if ln.startswith(fn))
+    frame = int(re.search(r": (\d+) bytes stack frame", line).group(1))
+    calls = sass_count(lib, fn, "CALL.REL.NOINC")
+    log(f"{kernel}: {line.split(': ', 1)[1]}; "
+        f"{'calls not counted' if calls is None else f'{calls} calls'}")
+    if frame or calls is None or calls:
+        raise AssertionError(f"{kernel} has a stack frame or calls: {line}, {calls}")
 
 
 def card_inputs(n: int):
@@ -844,14 +868,8 @@ def main() -> int:
     wide = sass_count("scan", scan_fn, "IMAD.WIDE.U32")
     log(f"sass scan (msm_scan_fused): {wide} IMAD.WIDE.U32, "
         f"{'not counted' if wide is None else round(wide / 7, 1)} a product; MONT = {MONT}")
-    # The carry scan's chain of full adds: inlined, so no call and no frame.
-    ab_fn = ptxas_function("scan", "ab_scan_kernel")
-    ab_line = next(ln for ln in _build.ptxas_report()["scan"] if ln.startswith(ab_fn))
-    calls = sass_count("scan", ab_fn, "CALL.REL.NOINC")
-    log(f"ab_scan_kernel: {ab_line.split(': ', 1)[1]}; "
-        f"{'calls not counted' if calls is None else f'{calls} calls'}")
-    if " 0 bytes stack frame" not in ab_line or calls:
-        raise AssertionError(f"ab_scan_kernel has a stack frame or calls: {ab_line}, {calls}")
+    for lib, kernel in INLINED:
+        check_inlined(lib, kernel)
     main_specs, fixed_specs, variant_specs = kernel_specs()
 
     e2e = {}

@@ -206,16 +206,26 @@ def test_seg_carry_scan_kernels_match_plain(dev):
     assert _same(got, S.seg_carry_scan(a, b))
 
 
-def test_bpr_stages(dev):
+@pytest.mark.parametrize("rows,chunks_per_window", [
+    (2 * 256, 4), (13 * B.CHUNK, 13), (1 << 15, 512), (1 << 19, 1024)])
+def test_bpr_stages(dev, rows, chunks_per_window):
+    """Both stages against their plain versions: two small windows; 13
+    chunks, so the last warp of stage 1 (four chunks of eight lanes) is
+    ragged; the fixed base's 512 chunks; the 2^20 path's 8192 chunks
+    (eight windows of 2^16 buckets)."""
     rng = np.random.default_rng(8)
-    buckets = _point_rows(rng, 2 * 256, dev)
+    buckets = _point_rows(rng, rows, dev)
     m, g = B.bpr_stage1(buckets)
     assert _same((m, g), B.bpr_stage1_plain(buckets))
-    assert _same(B.bpr_stage2(m, g, 4), B.bpr_stage2_plain(m, g, 4))
+    assert _same(B.bpr_stage2(m, g, chunks_per_window),
+                 B.bpr_stage2_plain(m, g, chunks_per_window))
 
 
-@pytest.mark.parametrize("w,cbits", [(20, 13), (16, 16), (32, 8)])
+@pytest.mark.parametrize("w,cbits", [(20, 13), (16, 16), (32, 8), (3, 16), (64, 4), (1, 16)])
 def test_horner(dev, w, cbits):
+    """The 2^16 and 2^20 paths' windows; lanes padded with the identity
+    ((3, 16): five of eight); the kernel's 64 lanes, 256 threads; one window,
+    which doubles nothing."""
     sums = _point_rows(np.random.default_rng(9), w, dev)
     assert _same(B.horner_fold(sums, cbits), B.horner_fold_plain(sums, cbits))
 

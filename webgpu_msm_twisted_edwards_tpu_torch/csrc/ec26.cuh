@@ -1,10 +1,11 @@
 // Extended twisted Edwards point arithmetic in the 26-bit digits of
 // csrc/field26.cuh, for kernels that keep a point in registers through a
-// long dependent chain: the scans (csrc/scan.cuh) and the carry scan
-// (csrc/scan.cu).
+// long dependent chain: the scans (csrc/scan.cuh), the carry scan
+// (csrc/scan.cu), bpr_stage1 and the Horner fold (csrc/bpr.cu).
 //
-// madd26 and full_add26_x4 repeat ec.cuh's madd and full_add (ec.py::madd,
-// ec.py::full_add) operation for operation, in the same order, on digits:
+// madd26, full_add26_x4 and pt_double26_x4 repeat ec.cuh's madd, full_add
+// and pt_double (ec.py::madd, ::full_add, ::double) operation for
+// operation, in the same order, on digits:
 // field26.cuh says why each digit operation gives the 13-bit one's residue,
 // so on normalized inputs these formulas give ec.cuh's packed rows bit for
 // bit.  Unlike ec.cuh's formulas, which cicc (CUDA 12.8) cannot inline into
@@ -74,6 +75,17 @@ __device__ __forceinline__ Fd fd_shfl4(const Fd& a, int k) {
   return r;
 }
 
+// The point whose x, y, t and z lanes 0, 1, 2 and 3 of each group of four
+// hold in r.
+__device__ __forceinline__ PtD ptd_shfl4(const Fd& r) {
+  PtD p;
+  p.x = fd_shfl4(r, 0);
+  p.y = fd_shfl4(r, 1);
+  p.t = fd_shfl4(r, 2);
+  p.z = fd_shfl4(r, 3);
+  return p;
+}
+
 // The q-th of four values, word by word (q is not known at compile time, so
 // an array indexed by it would go to local memory).
 __device__ __forceinline__ Fd fd_pick4(int q, const Fd& a, const Fd& b, const Fd& c,
@@ -113,12 +125,34 @@ __device__ __forceinline__ PtD full_add26_x4(const PtD& p1, const PtD& p2, int q
   const Fd h = fd_add_lazy(b, a);
   // x = e*f, y = g*h, t = e*h, z = f*g.
   const Fd r = mont26(fd_pick4(q, e, g, e, f), fd_pick4(q, f, h, h, g));
-  PtD out;
-  out.x = fd_shfl4(r, 0);
-  out.y = fd_shfl4(r, 1);
-  out.t = fd_shfl4(r, 2);
-  out.z = fd_shfl4(r, 3);
-  return out;
+  return ptd_shfl4(r);
+}
+
+// ec.cuh::pt_double (ec.py::double, dbl-2008-hwcd with a = -1) on a group
+// of four neighbouring lanes that hold the same p1, as full_add26_x4 does
+// the add.  Its 8 products are two sets of four independent ones: lane q
+// computes product q of each set and the group exchanges the results by
+// shuffles.  The lazy operations are pt_double's, in its order, so the
+// bits are the same; the dependent chain is 2 products long, not 8.
+__device__ __forceinline__ PtD pt_double26_x4(const PtD& p1, int q) {
+  const Fd xy = fd_add_lazy(p1.x, p1.y);
+  // a = x*x, b = y*y, zz = z*z, e_in = xy*xy.
+  const Fd sq = fd_pick4(q, p1.x, p1.y, p1.z, xy);
+  const Fd m = mont26(sq, sq);
+  const Fd a = fd_shfl4(m, 0);
+  const Fd b = fd_shfl4(m, 1);
+  const Fd zz = fd_shfl4(m, 2);
+  const Fd e_in = fd_shfl4(m, 3);
+  const Fd cc = fd_add_lazy(zz, zz);
+  const Fd s_ab = fd_add_lazy(a, b);
+  const Fd d = fd_neg_lazy(a);
+  const Fd e = fd_sub_lazy(e_in, s_ab);
+  const Fd h = fd_sub_lazy(d, b);
+  const Fd g = fd_add_lazy(d, b);
+  const Fd f = fd_sub_lazy(g, cc);
+  // x = e*f, y = g*h, t = e*h, z = f*g.
+  const Fd r = mont26(fd_pick4(q, e, g, e, f), fd_pick4(q, f, h, h, g));
+  return ptd_shfl4(r);
 }
 
 // One coordinate's MSM_LP packed words (ec.py::pt_pack) into w.

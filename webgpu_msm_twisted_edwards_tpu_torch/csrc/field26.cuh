@@ -1,5 +1,6 @@
 // Field arithmetic in 26-bit digits, for the point formulas of csrc/ec26.cuh
-// (the scans' madd, the carry scan's full add).
+// (the scans' madd, the full add of the carry scan and bpr_stage1, the
+// Horner fold's doubling).
 //
 // An element is 10 little-endian digits of 26 bits in uint32_t, digit i =
 // limb 2i | limb 2i+1 << 13 of the 13-bit form of csrc/field.cuh: the same

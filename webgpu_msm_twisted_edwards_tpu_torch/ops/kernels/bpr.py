@@ -165,9 +165,10 @@ def horner_fold_plain(sums: torch.Tensor, cbits: int) -> torch.Tensor:
 def horner_fold(sums: torch.Tensor, cbits: int) -> torch.Tensor:
     """[W, TW] packed window sums -> [1, TW] packed projective total
     sum_w 2^(cbits*w) * S_w.  The W lanes are padded with identity rows to a
-    power of two >= 8; lane l doubles min(cbits*l, cbits*(W-1)) times, then
-    rotate-and-add rounds leave the total in lane 0.  Launches csrc/bpr.cu on
-    CUDA tensors; CPU tensors take the plain version."""
+    power of two >= 8 (the kernel pads its own); lane l doubles
+    min(cbits*l, cbits*(W-1)) times, then rotate-and-add rounds leave the
+    total in lane 0.  Launches csrc/bpr.cu on CUDA tensors; CPU tensors take
+    the plain version."""
     _build.capture("horner", sums, cbits)
     if not _build.on_cuda(sums):
         return horner_fold_plain(sums, cbits)
@@ -175,7 +176,7 @@ def horner_fold(sums: torch.Tensor, cbits: int) -> torch.Tensor:
     lanes = _horner_lanes(w)
     if lanes > 64:
         raise ValueError(f"{w} windows exceed the kernel's 64 lanes")
-    sums = _build.check(_pad_identity(sums, lanes), torch.int32, (lanes, TW), "sums")
+    sums = _build.check(sums, torch.int32, (w, TW), "sums")
     out = torch.empty((1, TW), dtype=torch.int32, device=sums.device)
     _build.launch("horner", "bpr", "msm_horner_fold", sums, out, w, cbits, lanes)
     return out
