@@ -8,17 +8,19 @@ Phases (any failure raises and exits non-zero):
 2. build of every kernel from csrc/ (nvcc, in parallel), its seconds,
    each kernel function's registers and spills, the IMAD.WIDE.U32 count of
    the main path's scan (cuobjdump -sass), from which MONT is taken, and
-   the registers, stack frame and calls of the kernels that run a chain of
-   inlined point operations (INLINED: the carry scan, bpr_stage1, the
-   Horner fold; a frame or a call fails);
+   the registers, stack frame and calls of the kernels whose point or field
+   operations are inlined (INLINED: the carry scan, bpr_stage1, the Horner
+   fold, the masked add, the per-window reduce, the table conversion; a
+   frame or a call fails);
 3. the main path: compute_msm at 2^16 points (c=13) and at 2^20 points
    (c=16) on inputs resident on the card (points from the native oracle's
    generator, scalars from a seeded numpy generator): kernel launch counts
    of one run, started from zero (the scan that reads the table by index
-   once per window group, no gather kernel and no scan of gathered rows),
-   then one warm and five timed runs, and the result checked against the
-   C++ oracle;
-4. each of the eight kernels replayed on the inputs of its largest call in
+   once per window group, no gather kernel and no scan of gathered rows,
+   MASKED_ADD_LAUNCHES masked adds and one per-window reduce), then one
+   warm and five timed runs, and the result checked against the C++
+   oracle;
+4. each of the nine kernels replayed on the inputs of its largest call in
    the 2^20 run, held bit for bit against its plain PyTorch version, and
    timed beside that version, the PyTorch library call that computes the
    same function (where one exists) and its bound;
@@ -132,9 +134,16 @@ def ptxas_function(lib: str, part: str) -> str:
     return names[0]
 
 
-#: (library, kernel) of the kernels whose chain of point operations is
-#: inlined (csrc/ec26.cuh): no stack frame and no call, or phase 2 fails.
-INLINED = (("scan", "ab_scan_kernel"), ("bpr", "bpr_stage1_kernel"), ("bpr", "horner_kernel"))
+#: (library, kernel) of the kernels whose point or field operations are
+#: inlined (csrc/ec26.cuh, csrc/field26.cuh): no stack frame and no call, or
+#: phase 2 fails.
+INLINED = (("scan", "ab_scan_kernel"), ("bpr", "bpr_stage1_kernel"), ("bpr", "horner_kernel"),
+           ("ec", "masked_add_kernel"), ("ec", "reduce_rows_kernel"),
+           ("convert", "convert_kernel"))
+#: masked_add launches of one MSM at 2^16 and 2^20 points and in the fixed
+#: base (one entry block): the bucket extraction and the carry scan's two
+#: carry applies; the per-window reduce after BPR is one reduce_rows launch.
+MASKED_ADD_LAUNCHES = 3
 
 
 def check_inlined(lib: str, kernel: str) -> None:
@@ -214,7 +223,8 @@ def main_path(n: int, capture: bool) -> dict:
 
 #: Kernels each run of the fixed-base path must launch.
 PRECOMPUTE_LAUNCHES = {"convert_pair": 1, "double_rows": 15, "normalize": 15}
-FIXED_BASE_MSM_KERNELS = ("hist", "scan_table_signed", "ab_scan", "masked_add", "bpr1", "bpr2")
+FIXED_BASE_MSM_KERNELS = ("hist", "scan_table_signed", "ab_scan", "masked_add", "bpr1", "bpr2",
+                          "reduce_rows")
 
 
 def fixed_base_path(n: int, want: dict) -> dict:
@@ -250,8 +260,9 @@ def fixed_base_path(n: int, want: dict) -> dict:
     if res != want:
         raise AssertionError(f"fixed base: got {res}, compute_msm {want}")
     missing = [k for k in FIXED_BASE_MSM_KERNELS if launches.get(k, 0) < 1]
-    if missing or any(launches.get(k, 0) for k in ("gather", "scan_signed", "scan_fused",
-                                                   "horner")):
+    if (missing or launches["masked_add"] != MASKED_ADD_LAUNCHES
+            or launches["reduce_rows"] != 1
+            or any(launches.get(k, 0) for k in ("gather", "scan_signed", "scan_fused", "horner"))):
         raise AssertionError(f"fixed-base MSM launches {launches}; missing {missing}")
 
     times = []
@@ -531,7 +542,20 @@ def work(name: str, args, out) -> tuple[int, int]:
     if name == "ab_scan":
         return moved, args[0].shape[0] * FULL_ADD
     if name == "masked_add":
-        return moved, int((args[2] != 0).sum()) * FULL_ADD
+        # The 4·LP used words of each a row, and of each b row whose mask is
+        # set; the mask; the whole rows written.  One full add a set row.
+        from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.common import LP
+        a, _, mask = args
+        added = int((mask != 0).sum())
+        return (4 * 4 * LP * (a.shape[0] + added) + nbytes(mask) + nbytes(*outs),
+                added * FULL_ADD)
+    if name == "reduce_rows":
+        # W*(per_window - 1) full adds; the 4·LP used words of each row read
+        # once, the whole sums written.
+        from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.common import LP
+        rows, per_window = args
+        return (4 * 4 * LP * rows.shape[0] + nbytes(*outs),
+                (rows.shape[0] - rows.shape[0] // per_window) * FULL_ADD)
     if name == "bpr1":
         return moved, args[0].shape[0] * 2 * FULL_ADD
     if name == "bpr2":
@@ -617,6 +641,10 @@ def kernel_specs() -> tuple[list, list, list]:
              "pallas/scan.py:409"),
         same("masked_add", E.masked_add_rows, E.masked_add_rows_plain, "ec.cu",
              "pallas/ec.py:130"),
+        # The JAX package's per-window reduce is a loop of masked adds
+        # (pallas/bpr.py:154); the port's runs every round in one launch.
+        same("reduce_rows", B.reduce_rows_per_window, B.reduce_rows_per_window_plain, "ec.cu",
+             "pallas/bpr.py:154"),
         same("bpr1", B.bpr_stage1, B.bpr_stage1_plain, "bpr.cu", "pallas/bpr.py:42"),
         same("bpr2", B.bpr_stage2, B.bpr_stage2_plain, "bpr.cu", "pallas/bpr.py:99"),
         same("horner", B.horner_fold, B.horner_fold_plain, "bpr.cu", "pallas/bpr.py:189"),
@@ -883,7 +911,8 @@ def main() -> int:
             f"bound {r['masked_add_bound_ms']:.4f} ms in all")
         # Every kernel of the path, the table scan once per window group.
         ran = {k: v for k, v in r["launches"].items() if v > 0}
-        if sorted(ran) != sorted(s[0] for s in main_specs) or ran["scan_fused"] != r["groups"]:
+        if (sorted(ran) != sorted(s[0] for s in main_specs) or ran["scan_fused"] != r["groups"]
+                or ran["masked_add"] != MASKED_ADD_LAUNCHES or ran["reduce_rows"] != 1):
             raise AssertionError(f"2^{logn}: launches {r['launches']}, {r['groups']} window "
                                  f"groups")
     kernels = kernels_phase(main_specs, e2e["2^20"].pop("captures"), e2e["2^20"]["launches"])

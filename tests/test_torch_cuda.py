@@ -62,8 +62,14 @@ def _same(a, b):
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def test_convert(dev):
-    coords = _coords(np.random.default_rng(1), 300, dev)
+#: Point counts of the conversion tests: one point, a ragged warp, a ragged
+#: block, a block and a point.
+CONVERT_NS = [1, 31, 300, 4097]
+
+
+@pytest.mark.parametrize("n", CONVERT_NS)
+def test_convert(dev, n):
+    coords = _coords(np.random.default_rng(1), n, dev)
     assert _same(CV.build_table_doubled(coords), CV.build_table_doubled_plain(coords))
 
 
@@ -189,11 +195,36 @@ def test_ab_scan_level(dev, monkeypatch, case):
         assert _same(level(la, lb, kab), S.ab_scan_level_plain(la, lb, kab))
 
 
-def test_masked_add(dev):
+@pytest.mark.parametrize("mask", ["random", "all 0", "all 1", "1 in 64"])
+@pytest.mark.parametrize("n", [1, 33, 1000, 1 << 18])
+def test_masked_add(dev, n, mask):
+    """Rows whose padding words are not zero (the output's are), one row, a
+    ragged warp, and the 2^20 path's extraction size; masks that leave
+    whole warps out and that set one row in two warps."""
     rng = np.random.default_rng(6)
-    a, b = _point_rows(rng, 1000, dev), _point_rows(rng, 1000, dev)
-    m = torch.from_numpy(rng.integers(0, 2, size=1000).astype(np.int32)).to(dev)
+    a, b = _point_rows(rng, n, dev), _point_rows(rng, n, dev)
+    for rows in (a, b):
+        rows[:, 40:] = torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, E.TW - 40),
+                                                     dtype=np.int64).astype(np.int32)).to(dev)
+    m = {"random": rng.integers(0, 2, size=n), "all 0": np.zeros(n), "all 1": np.ones(n),
+         "1 in 64": np.arange(n) % 64 == 5}[mask]
+    m = torch.from_numpy(np.asarray(m).astype(np.int32)).to(dev)
     assert _same(E.masked_add_rows(a, b, m), E.masked_add_rows_plain(a, b, m))
+
+
+@pytest.mark.parametrize("w,per_window", [(1, 2), (20, 64), (16, 512), (3, 1024), (2, 4096)])
+def test_reduce_rows_per_window(dev, w, per_window):
+    """The one-launch reduce against the plain loop of masked adds: one
+    round in one warp; the 2^16 path's windows; the 2^20 path's (dynamic
+    shared memory above 48 KB); the most rows a block holds (160 KB); and
+    windows that first take two rounds of the masked add."""
+    rows = _point_rows(np.random.default_rng(12), w * per_window, dev)
+    _build.reset_launch_counts()
+    got = B.reduce_rows_per_window(rows, per_window)
+    assert _build.launches["reduce_rows"] == 1
+    halvings = max(0, (per_window // B.REDUCE_MAX_ROWS).bit_length() - 1)
+    assert _build.launches["masked_add"] == halvings
+    assert _same(got, B.reduce_rows_per_window_plain(rows, per_window))
 
 
 def test_seg_carry_scan_kernels_match_plain(dev):
@@ -246,8 +277,9 @@ def test_compute_msm_cuda_matches_cpu(dev):
     assert (got["x"], got["y"]) == oracle.msm(pts, sc, c=16)
 
 
-def test_convert_pair(dev):
-    coords = _coords(np.random.default_rng(10), 300, dev)
+@pytest.mark.parametrize("n", CONVERT_NS)
+def test_convert_pair(dev, n):
+    coords = _coords(np.random.default_rng(10), n, dev)
     pair = CV.build_table_pair(coords)
     assert _same(pair, CV.build_table_pair_plain(coords))
     assert _same(CV.build_table(coords), pair[0])

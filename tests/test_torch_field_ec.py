@@ -89,11 +89,12 @@ def test_cuda_header_constants_match_consts_array():
 
 def test_field26_header_constants_match_common():
     """csrc/field26.cuh spells out the 26-bit digit constants of the scans'
-    madd: p, R mod p, 4p in headroom form, and N0' = -p^-1 mod 2^26."""
+    madd: p, R mod p, 4p in headroom form, and N0' = -p^-1 mod 2^26; and
+    R^2 mod p, which the table conversion multiplies by."""
     path = os.path.join(os.path.dirname(TC.__file__), "..", "..", "csrc", "field26.cuh")
     src = open(path).read()
     want = TC.make_digit_consts()
-    for fn, key in (("d_p", "p"), ("d_r", "r"), ("d_q4", "q4")):
+    for fn, key in (("d_p", "p"), ("d_r", "r"), ("d_r2", "r2"), ("d_q4", "q4")):
         body = re.search(fn + r"\(int i\) \{\s*constexpr uint32_t v\[MSM_LD\] = \{([^}]*)\}",
                          src).group(1)
         assert [int(v, 16) for v in body.replace(",", " ").split()] == want[key], fn

@@ -161,6 +161,16 @@ def test_bpr_stages():
     _eq(JB.reduce_rows_per_window(jg2, 2, interpret=True), B.reduce_rows_per_window(g2, 2))
 
 
+@pytest.mark.parametrize("w,per_window", [(2, 2), (2, 8)])
+def test_reduce_rows_per_window(w, per_window):
+    """The per-window reduction alone, in one round (per_window = 2) and in
+    three (per_window = 8): each round adds the second half of every
+    window's rows to its first half."""
+    rows = _point_rows(w * per_window, 15)
+    want = JB.reduce_rows_per_window(jnp.asarray(rows), per_window, interpret=True)
+    _eq(want, B.reduce_rows_per_window(from_numpy_u32(rows), per_window))
+
+
 def test_horner_fold_identity_padding():
     """W = 20 windows are padded with identity rows to 32 lanes."""
     sums = _point_rows(20, 13)

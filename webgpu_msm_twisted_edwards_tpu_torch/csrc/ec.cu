@@ -1,30 +1,149 @@
-// Point operations over packed rows: the masked add, the quarter-store
-// extraction and repeated doubling.
+// Point operations over packed rows: the masked add and the per-window
+// reduce built on it, the quarter-store extraction and repeated doubling.
 //
 // Masked add, out_i = mask_i ? a_i + b_i : a_i.
 // Replaces webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py::
 // _masked_add_kernel (masked_add_rows).  The MSM uses it for bucket
-// extraction, the carry apply of the carry scan, the per-window reduction
-// after BPR and the combine of point blocks.
+// extraction, the carry apply of the carry scan and the combine of point
+// blocks; the per-window reduction after BPR, a loop of it in the JAX
+// package, is one launch of reduce_rows_kernel below.
 //
-// Bound on the H100: operations (one full add, about 7.6 K 32-bit
-// multiply-adds, per row against 772 bytes read and written).
-// Design: one thread per row; a row whose mask is 0 skips the add (the JAX
-// kernel computes and discards it; the stored row is the same).
+// Bound on the H100: bytes (772 bytes read and written a row, against one
+// full add, 3420 32-bit multiply-adds in 26-bit digits, a set row: at the
+// 2^20 path's extraction, 524288 rows, 0.121 ms against at most 0.107).
+// Design: one thread per row, the add in the 26-bit digits of
+// csrc/field26.cuh (full_add26, csrc/ec26.cuh, inlined: no call and no
+// stack frame), from the row loads (ptd_load_packed) to the packed words;
+// a row whose mask is 0 skips the add (the JAX kernel computes and
+// discards it) and keeps its 40 words as they were loaded.  The warp writes
+// its 32 rows whole through shared memory (ec26.cuh::warp_store_packed):
+// two 256-byte rows a 16-byte store instruction, the 24 padding words zero.
+// Rows hold normalized limbs (every packed row the pipeline makes), on
+// which the digits give ec.cuh's full_add bit for bit (ec26.cuh).
 #include <cuda_runtime.h>
 
 #include "ec.cuh"
+#include "ec26.cuh"
 
 namespace msm {
 
-__global__ void __launch_bounds__(128)
+constexpr int MASKED_ADD_THREADS = 128;
+
+__global__ void __launch_bounds__(MASKED_ADD_THREADS)
 masked_add_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                   const int32_t* __restrict__ mask, uint32_t* __restrict__ out, long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Pt p = pt_load(a + i * MSM_TW);
-  if (mask[i] != 0) p = full_add(p, pt_load(b + i * MSM_TW));
-  pt_store(out + i * MSM_TW, p);
+  __shared__ __align__(16) uint32_t slots[MASKED_ADD_THREADS * ROW_SLOT];
+  const long long warp0 = blockIdx.x * (long long)MASKED_ADD_THREADS + (threadIdx.x & ~31);
+  if (warp0 >= n) return;  // the whole warp: the kernel syncs only warps
+  // Lanes past the last row repeat it and store nothing.
+  const long long i = min(warp0 + (threadIdx.x & 31), n - 1);
+  uint32_t w[4 * MSM_LP];
+  load_packed_words(a + i * MSM_TW, w);
+  if (mask[i] != 0) ptd_pack(full_add26(ptd_from_packed(w), ptd_load_packed(b + i * MSM_TW)), w);
+  warp_store_packed(w, slots + threadIdx.x * ROW_SLOT, slots + (threadIdx.x & ~31) * ROW_SLOT,
+                    out + warp0 * MSM_TW, MSM_TW, (int)min(n - warp0, 32LL));
+}
+
+// Lanes that share one add in reduce_rows_kernel, the most threads of its
+// blocks (64 adds at a time, so that every thread may take 255 registers:
+// under __launch_bounds__(256) alone ptxas held it to 64 and spilled), and
+// the most rows of a window it holds in shared memory (160 bytes each as
+// digits: 160 KB of the 227 KB a block may have).
+constexpr int REDUCE_LANES = 4;
+constexpr int REDUCE_THREADS = 256;
+constexpr int REDUCE_MAX_ROWS = 1024;
+
+// A point kept as 4*MSM_LP digit words (x, y, t, z) in 16-byte aligned
+// shared memory.
+__device__ __forceinline__ PtD ptd_read_digits(const uint32_t* d) {
+  uint32_t w[4 * MSM_LP];
+  const uint4* d4 = reinterpret_cast<const uint4*>(d);
+#pragma unroll
+  for (int i = 0; i < MSM_LP; ++i) {
+    const uint4 q = d4[i];
+    w[4 * i] = q.x;
+    w[4 * i + 1] = q.y;
+    w[4 * i + 2] = q.z;
+    w[4 * i + 3] = q.w;
+  }
+  PtD p;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) {
+    p.x.v[i] = w[i];
+    p.y.v[i] = w[MSM_LD + i];
+    p.t.v[i] = w[2 * MSM_LD + i];
+    p.z.v[i] = w[3 * MSM_LD + i];
+  }
+  return p;
+}
+
+// Replaces the JAX package's per-window reduction,
+// webgpu_msm_twisted_edwards_tpu/ops/pallas/bpr.py::reduce_rows_per_window:
+// log2(per_window) rounds of _masked_add_kernel with every mask set, each
+// round row i = row i + row (i + half) for i < half over each window's
+// rows.
+//
+// Bound on the H100: by count, operations (per_window - 1 full adds a
+// window against 256 bytes read a row); in fact latency: at 2^20 points
+// and in the fixed base a window is a chain of 9 rounds of at most 256 adds
+// (16 and 1 windows of 512 rows), at 2^16 points of 6 rounds (20 windows
+// of 64).
+// Design: one block a window, one launch for all the rounds.  The window's
+// rows are loaded once, coalesced, into dynamic shared memory as 26-bit
+// digits, and stay there between rounds, with a __syncthreads after each:
+// a round's sums are normalized digits, which pack -> store -> load would
+// give back unchanged, so the bits are the loop's.  Each add runs on four
+// lanes (full_add26_x4, csrc/ec26.cuh: 3 dependent products where one
+// thread has 9), inlined, no call and no stack frame; lane q writes
+// coordinate q of the sum.  Adds of one round write rows below half and
+// read rows i and i + half, so no add reads a row another one writes; a
+// warp that holds fewer adds than groups gives its spare groups row half
+// (not written in the round) and lets them store nothing.  Row 0 of the
+// window is written out packed, with its 24 zero words.
+__global__ void __maxnreg__(255)
+reduce_rows_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ out,
+                   int per_window) {
+  extern __shared__ __align__(16) uint32_t pts[];  // per_window rows of 4*MSM_LP digits
+  constexpr int RW = 4 * MSM_LP;
+  const uint32_t* src = rows + blockIdx.x * (long long)per_window * MSM_TW;
+  for (int k = threadIdx.x; k < per_window * MSM_LP; k += blockDim.x) {
+    const int r = k / MSM_LP, c = k % MSM_LP;
+    const uint4 v = reinterpret_cast<const uint4*>(src + r * MSM_TW)[c];
+    reinterpret_cast<uint4*>(pts + r * RW)[c] =
+        make_uint4(fd_unpack_word(v.x), fd_unpack_word(v.y), fd_unpack_word(v.z),
+                   fd_unpack_word(v.w));
+  }
+  __syncthreads();
+  const int q = threadIdx.x & (REDUCE_LANES - 1), group = threadIdx.x / REDUCE_LANES;
+  const int groups = blockDim.x / REDUCE_LANES, warp_group0 = (threadIdx.x & ~31) / REDUCE_LANES;
+#pragma unroll 1
+  for (int half = per_window / 2; half >= 1; half /= 2) {
+#pragma unroll 1
+    for (int base = 0; base < half; base += groups) {
+      if (base + warp_group0 < half) {  // the whole warp, for the shuffles
+        const int i = base + group;
+        const bool real = i < half;
+        const PtD s = full_add26_x4(ptd_read_digits(pts + (real ? i : half) * RW),
+                                    ptd_read_digits(pts + (real ? i + half : half) * RW), q);
+        __syncwarp();  // the group has read row i before any lane writes it
+        if (real) {
+          const Fd c = fd_pick4(q, s.x, s.y, s.t, s.z);
+          uint2* d2 = reinterpret_cast<uint2*>(pts + i * RW + q * MSM_LD);
+#pragma unroll
+          for (int k = 0; k < MSM_LD / 2; ++k) d2[k] = make_uint2(c.v[2 * k], c.v[2 * k + 1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < MSM_TW / 4) {
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (threadIdx.x < MSM_LP) {
+      const uint4 d = reinterpret_cast<const uint4*>(pts)[threadIdx.x];
+      v = make_uint4(fd_pack_word(d.x), fd_pack_word(d.y), fd_pack_word(d.z), fd_pack_word(d.w));
+    }
+    reinterpret_cast<uint4*>(out + blockIdx.x * (long long)MSM_TW)[threadIdx.x] = v;
+  }
 }
 
 // Replaces webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py::
@@ -89,11 +208,33 @@ extract_reconstruct_kernel(const uint32_t* __restrict__ base, const uint32_t* __
 extern "C" int msm_masked_add_rows(const void* a, const void* b, const void* mask, void* out,
                                    long long n, void* stream) {
   if (n > 0) {
-    const int threads = 128;
-    const long long blocks = (n + threads - 1) / threads;
-    msm::masked_add_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const long long blocks = (n + msm::MASKED_ADD_THREADS - 1) / msm::MASKED_ADD_THREADS;
+    msm::masked_add_kernel<<<blocks, msm::MASKED_ADD_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (const int32_t*)mask, (uint32_t*)out, n);
   }
+  return (int)cudaGetLastError();
+}
+
+// rows: [w*per_window, 64] u32, window-major; out: [w, 64] u32.  per_window
+// a power of two in [2, 1024] (else cudaErrorInvalidValue).  Returns the
+// first CUDA error: a refused shared-memory size or launch is not 0.
+extern "C" int msm_reduce_rows_per_window(const void* rows, void* out, long long w,
+                                          long long per_window, void* stream) {
+  if (per_window < 2 || per_window > msm::REDUCE_MAX_ROWS || (per_window & (per_window - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (w <= 0) return (int)cudaGetLastError();
+  const size_t smem = (size_t)per_window * 4 * MSM_LP * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        msm::reduce_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // Four lanes an add of the first round, at least one warp.
+  long long threads = msm::REDUCE_LANES * (per_window / 2);
+  if (threads < 32) threads = 32;
+  if (threads > msm::REDUCE_THREADS) threads = msm::REDUCE_THREADS;
+  msm::reduce_rows_kernel<<<(unsigned)w, (unsigned)threads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)rows, (uint32_t*)out, (int)per_window);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,11 @@
 // Extended twisted Edwards point arithmetic in the 26-bit digits of
-// csrc/field26.cuh, for kernels that keep a point in registers through a
-// long dependent chain: the scans (csrc/scan.cuh), the carry scan
-// (csrc/scan.cu), bpr_stage1 and the Horner fold (csrc/bpr.cu).
+// csrc/field26.cuh: the scans (csrc/scan.cuh), the carry scan
+// (csrc/scan.cu), bpr_stage1 and the Horner fold (csrc/bpr.cu), the masked
+// add and the per-window reduce (csrc/ec.cu).
 //
-// madd26, full_add26_x4 and pt_double26_x4 repeat ec.cuh's madd, full_add
-// and pt_double (ec.py::madd, ::full_add, ::double) operation for
-// operation, in the same order, on digits:
+// madd26, full_add26, full_add26_x4 and pt_double26_x4 repeat ec.cuh's
+// madd, full_add and pt_double (ec.py::madd, ::full_add, ::double)
+// operation for operation, in the same order, on digits:
 // field26.cuh says why each digit operation gives the 13-bit one's residue,
 // so on normalized inputs these formulas give ec.cuh's packed rows bit for
 // bit.  Unlike ec.cuh's formulas, which cicc (CUDA 12.8) cannot inline into
@@ -54,6 +54,33 @@ __device__ __forceinline__ PtD madd26(const PtD& p1, const Fd& d2, const Fd& s2,
   const Fd a = mont26(d1, d2);
   const Fd b = mont26(s1, s2);
   const Fd cc = mont26(p1.t, td2);
+  const Fd e = fd_sub_lazy(b, a);
+  const Fd f = fd_sub_lazy(dd, cc);
+  const Fd g = fd_add_lazy(dd, cc);
+  const Fd h = fd_add_lazy(b, a);
+  PtD r;
+  r.x = mont26(e, f);
+  r.y = mont26(g, h);
+  r.t = mont26(e, h);
+  r.z = mont26(f, g);
+  return r;
+}
+
+// ec.cuh::full_add (ec.py::full_add), the unified add of two arbitrary
+// points with the product by d (cc1) lazy, on one thread: full_add26_x4's
+// operations in its order, its 9 products one after the other.
+__device__ __forceinline__ PtD full_add26(const PtD& p1, const PtD& p2) {
+  const Fd d1 = fd_sub_lazy(p1.y, p1.x);
+  const Fd d2 = fd_sub_lazy(p2.y, p2.x);
+  const Fd s1 = fd_add_lazy(p1.x, p1.y);
+  const Fd s2 = fd_add_lazy(p2.x, p2.y);
+  const Fd a = mont26(d1, d2);
+  const Fd b = mont26(s1, s2);
+  const Fd t12 = mont26(p1.t, p2.t);
+  const Fd z12 = mont26(p1.z, p2.z);
+  const Fd cc1 = mont26(t12, fd_d());
+  const Fd cc = fd_add_lazy(cc1, cc1);
+  const Fd dd = fd_add_lazy(z12, z12);
   const Fd e = fd_sub_lazy(b, a);
   const Fd f = fd_sub_lazy(dd, cc);
   const Fd g = fd_add_lazy(dd, cc);
@@ -161,11 +188,9 @@ __device__ __forceinline__ void pack_digits(const Fd& a, uint32_t* w) {
   for (int i = 0; i < MSM_LP; ++i) w[i] = fd_pack_word(a.v[i]);
 }
 
-// One packed point row (ec.py::pt_unpack; 16-byte aligned, its 40 used
-// words read with 16-byte loads) as digits.  Packed rows hold normalized
-// limbs, so word i is digit i spread over bits 0..12 and 16..28.
-__device__ __forceinline__ PtD ptd_load_packed(const uint32_t* row) {
-  uint32_t w[4 * MSM_LP];
+// The 40 used words of one packed point row (16-byte aligned), read with
+// 16-byte loads.
+__device__ __forceinline__ void load_packed_words(const uint32_t* row, uint32_t* w) {
   const uint4* r4 = reinterpret_cast<const uint4*>(row);
 #pragma unroll
   for (int i = 0; i < MSM_LP; ++i) {
@@ -175,6 +200,12 @@ __device__ __forceinline__ PtD ptd_load_packed(const uint32_t* row) {
     w[4 * i + 2] = q.z;
     w[4 * i + 3] = q.w;
   }
+}
+
+// The 40 packed words of one point (ec.py::pt_unpack) as digits.  Packed
+// rows hold normalized limbs, so word i is digit i spread over bits 0..12
+// and 16..28.
+__device__ __forceinline__ PtD ptd_from_packed(const uint32_t* w) {
   PtD p;
 #pragma unroll
   for (int i = 0; i < MSM_LD; ++i) {
@@ -186,20 +217,75 @@ __device__ __forceinline__ PtD ptd_load_packed(const uint32_t* row) {
   return p;
 }
 
-// ec.py::pt_pack of one point, written by this thread as a whole MSM_TW-word
-// row with 16-byte stores, the 24 padding words zero.
-__device__ __forceinline__ void ptd_store_packed(uint32_t* row, const PtD& p) {
+// One packed point row as digits.
+__device__ __forceinline__ PtD ptd_load_packed(const uint32_t* row) {
   uint32_t w[4 * MSM_LP];
+  load_packed_words(row, w);
+  return ptd_from_packed(w);
+}
+
+// The 40 packed words of one point (ec.py::pt_pack) into w.
+__device__ __forceinline__ void ptd_pack(const PtD& p, uint32_t* w) {
   pack_digits(p.x, w);
   pack_digits(p.y, w + MSM_LP);
   pack_digits(p.t, w + 2 * MSM_LP);
   pack_digits(p.z, w + 3 * MSM_LP);
+}
+
+// ec.py::pt_pack of one point, written by this thread as a whole MSM_TW-word
+// row with 16-byte stores, the 24 padding words zero.
+__device__ __forceinline__ void ptd_store_packed(uint32_t* row, const PtD& p) {
+  uint32_t w[4 * MSM_LP];
+  ptd_pack(p, w);
   uint4* r4 = reinterpret_cast<uint4*>(row);
 #pragma unroll
   for (int i = 0; i < MSM_LP; ++i)
     r4[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
 #pragma unroll
   for (int i = MSM_LP; i < MSM_TW / 4; ++i) r4[i] = make_uint4(0, 0, 0, 0);
+}
+
+// Words of one thread's staging slot in warp_store_packed: the 40 packed
+// words, padded so that a quarter-warp's 16-byte shared stores fall on
+// distinct banks.
+constexpr int ROW_SLOT = 44;
+
+// The warp's store of one packed point row a lane: for r < rows_valid, row
+// r of the warp's output (dst0 + r*rstride) gets lane r's 40 words w and 24
+// zero words.  slot: this thread's staging slot of ROW_SLOT words in shared
+// memory; wslots: the warp's 32 slots.  Each thread writes its words into
+// its slot, then the warp writes two whole 256-byte rows with each 16-byte
+// store instruction, neighbouring lanes on neighbouring words.
+__device__ __forceinline__ void warp_store_packed(const uint32_t* w, uint32_t* slot,
+                                                  const uint32_t* wslots, uint32_t* dst0,
+                                                  long long rstride, int rows_valid) {
+  __syncwarp();  // the previous rows have been read out of the slots
+  uint4* s4 = reinterpret_cast<uint4*>(slot);
+#pragma unroll
+  for (int i = 0; i < MSM_LP; ++i)
+    s4[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  __syncwarp();
+  // Half-warp h writes rows 2r + h: lane c of it the 16-byte chunk c, zero
+  // past the 40 packed words.
+  const int lane = threadIdx.x & 31, half = lane >> 4, chunk = lane & 15;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int row = 2 * r + half;
+    if (row < rows_valid) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (chunk < MSM_LP) v = reinterpret_cast<const uint4*>(wslots + row * ROW_SLOT)[chunk];
+      reinterpret_cast<uint4*>(dst0 + row * rstride)[chunk] = v;
+    }
+  }
+}
+
+// warp_store_packed of each lane's point p, packed (ec.py::pt_pack).
+__device__ __forceinline__ void warp_store_rows(const PtD& p, uint32_t* slot,
+                                                const uint32_t* wslots, uint32_t* dst0,
+                                                long long rstride, int rows_valid) {
+  uint32_t w[4 * MSM_LP];
+  ptd_pack(p, w);
+  warp_store_packed(w, slot, wslots, dst0, rstride, rows_valid);
 }
 
 }  // namespace msm

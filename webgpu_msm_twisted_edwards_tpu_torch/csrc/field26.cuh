@@ -1,6 +1,7 @@
 // Field arithmetic in 26-bit digits, for the point formulas of csrc/ec26.cuh
-// (the scans' madd, the full add of the carry scan and bpr_stage1, the
-// Horner fold's doubling).
+// (the scans' madd, the full add of the carry scan, bpr_stage1, the masked
+// add and the per-window reduce, the Horner fold's doubling) and for the
+// table conversion (csrc/convert.cu).
 //
 // An element is 10 little-endian digits of 26 bits in uint32_t, digit i =
 // limb 2i | limb 2i+1 << 13 of the 13-bit form of csrc/field.cuh: the same
@@ -45,8 +46,8 @@
 
 namespace msm {
 
-// p, R mod p, d*R mod p (the curve's d, Montgomery form) and the headroom
-// form of 4p, in 26-bit digits.  Functions, not
+// p, R mod p, R^2 mod p, d*R mod p (the curve's d, Montgomery form) and the
+// headroom form of 4p, in 26-bit digits.  Functions, not
 // arrays: device code may not read a namespace-scope constexpr array, and
 // with every loop unrolled each call folds to an immediate operand.
 __host__ __device__ constexpr uint32_t d_p(int i) {
@@ -59,6 +60,12 @@ __host__ __device__ constexpr uint32_t d_r(int i) {
   constexpr uint32_t v[MSM_LD] = {
       0x3ffff25, 0x1dfffff, 0x3f1c630, 0x0103fff, 0x04b2c34,
       0x3171bb6, 0x0207071, 0x23c6d17, 0x0121bce, 0x001d812};
+  return v[i];
+}
+__host__ __device__ constexpr uint32_t d_r2(int i) {
+  constexpr uint32_t v[MSM_LD] = {
+      0x1857af1, 0x04eae18, 0x1f163e7, 0x268c164, 0x3eb2abc,
+      0x15090ed, 0x300b1e7, 0x2266085, 0x364e92b, 0x001f3fd};
   return v[i];
 }
 __host__ __device__ constexpr uint32_t d_d(int i) {
@@ -83,6 +90,14 @@ __device__ __forceinline__ Fd fd_one() {
   Fd r;
 #pragma unroll
   for (int i = 0; i < MSM_LD; ++i) r.v[i] = d_r(i);
+  return r;
+}
+
+// R^2 mod p: a product by it takes an element into Montgomery form.
+__device__ __forceinline__ Fd fd_r2() {
+  Fd r;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) r.v[i] = d_r2(i);
   return r;
 }
 
@@ -187,6 +202,35 @@ __device__ __forceinline__ Fd mont26(const Fd& x, const Fd& y) {
     r.v[m] = (uint32_t)v & MSM_DMASK;
     carry = v >> MSM_DW;
   }
+  return r;
+}
+
+// a >= p ? a - p : a on normalized digits: field.cuh::cond_sub_p on digits.
+// Both compare the integer a with p and subtract p with a borrow chain, so
+// they give the same integer, and mont26_reduced below gives the limbs of
+// field.cuh's mont_mul(x, y, true): mont26 and the 13-bit product give the
+// same integer (above), and this subtraction then does the same to it.
+__device__ __forceinline__ void fd_cond_sub_p(Fd& a) {
+  bool ge = true;
+  uint32_t borrow = 0;
+  Fd d;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) {
+    const uint32_t p = d_p(i);
+    ge = (a.v[i] > p) | ((a.v[i] == p) & ge);
+    const uint32_t t = a.v[i] + (1u << MSM_DW) - p - borrow;
+    borrow = 1u - (t >> MSM_DW);
+    d.v[i] = t & MSM_DMASK;
+  }
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) a.v[i] = ge ? d.v[i] : a.v[i];
+}
+
+// The reduced product x*y*R^-1 (mont_mul(..., true), common.py::mont_mul's
+// default): mont26, then one conditional subtraction of p.
+__device__ __forceinline__ Fd mont26_reduced(const Fd& x, const Fd& y) {
+  Fd r = mont26(x, y);
+  fd_cond_sub_p(r);
   return r;
 }
 

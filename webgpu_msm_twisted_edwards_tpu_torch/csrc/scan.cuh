@@ -45,9 +45,9 @@
 // thread writes its 40 packed words into its slot of its warp's staging
 // buffer, then the warp writes two whole 256-byte rows (the 24 zero words
 // included) with each 16-byte store instruction, neighbouring lanes on
-// neighbouring words.  The last warp's lanes past nf recompute fragment
-// nf - 1 and store nothing.  Every offset is 64-bit: the rows and the
-// output pass 2^31 words at 2^20 points.
+// neighbouring words (ec26.cuh::warp_store_rows).  The last warp's lanes
+// past nf recompute fragment nf - 1 and store nothing.  Every offset is
+// 64-bit: the rows and the output pass 2^31 words at 2^20 points.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,9 +67,6 @@ enum ScanMask { MASK_KEYS = 0, MASK_SAMES = 1, MASK_SIGNED = 2 };
 // this bound.
 constexpr int SCAN_THREADS = 64;
 constexpr int SCAN_MIN_BLOCKS = 8;
-// Words of one thread's staging slot: the 40 packed words, padded so that a
-// quarter-warp's 16-byte shared stores fall on distinct banks.
-constexpr int SCAN_SLOT = 44;
 
 // The cached form (y-x, y+x, 2*d*t) of one table row, its first 3*MSM_L
 // words (one limb a word), read with 16-byte loads, as digits.
@@ -89,49 +86,17 @@ __device__ __forceinline__ void load_cached26(const uint32_t* row, Fd& d2, Fd& s
   td2 = fd_from_limbs(w + 2 * MSM_L);
 }
 
-// The warp's store of one step: for r < rows_valid, row r of the warp's
-// output (dst0 + r*fstride: this step's row of the warp's fragment r) gets
-// lane r's point, packed.  slot: this thread's staging slot; wslots: the
-// warp's 32 slots.
-__device__ __forceinline__ void warp_store_rows(const PtD& p, uint32_t* slot,
-                                                const uint32_t* wslots, uint32_t* dst0,
-                                                long long fstride, int rows_valid) {
-  uint32_t w[4 * MSM_LP];
-  pack_digits(p.x, w);
-  pack_digits(p.y, w + MSM_LP);
-  pack_digits(p.t, w + 2 * MSM_LP);
-  pack_digits(p.z, w + 3 * MSM_LP);
-  __syncwarp();  // the previous step's rows have been read out of the slots
-  uint4* s4 = reinterpret_cast<uint4*>(slot);
-#pragma unroll
-  for (int i = 0; i < MSM_LP; ++i)
-    s4[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
-  __syncwarp();
-  // Half-warp h writes rows 2r + h: lane c of it the 16-byte chunk c, zero
-  // past the 40 packed words.
-  const int lane = threadIdx.x & 31, half = lane >> 4, chunk = lane & 15;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = 2 * r + half;
-    if (row < rows_valid) {
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (chunk < MSM_LP) v = reinterpret_cast<const uint4*>(wslots + row * SCAN_SLOT)[chunk];
-      reinterpret_cast<uint4*>(dst0 + row * fstride)[chunk] = v;
-    }
-  }
-}
-
 template <int ROWS, int MASK, int STORE>
 __global__ void __launch_bounds__(SCAN_THREADS, SCAN_MIN_BLOCKS)
 scan_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ pidx, long long psj,
             long long psf, const int32_t* __restrict__ aux_t, uint32_t* __restrict__ out,
             long long nf, long long lblk) {
-  __shared__ __align__(16) uint32_t slots[SCAN_THREADS * SCAN_SLOT];
+  __shared__ __align__(16) uint32_t slots[SCAN_THREADS * ROW_SLOT];
   const long long warp0 = blockIdx.x * (long long)SCAN_THREADS + (threadIdx.x & ~31);
   const long long f = min(warp0 + (threadIdx.x & 31), nf - 1);
   const int rows_valid = (int)min(nf - warp0, 32LL);
-  uint32_t* slot = slots + threadIdx.x * SCAN_SLOT;
-  const uint32_t* wslots = slots + (threadIdx.x & ~31) * SCAN_SLOT;
+  uint32_t* slot = slots + threadIdx.x * ROW_SLOT;
+  const uint32_t* wslots = slots + (threadIdx.x & ~31) * ROW_SLOT;
   const PtD ident = ptd_identity();
   PtD acc = ident;
   int kprev = -1;

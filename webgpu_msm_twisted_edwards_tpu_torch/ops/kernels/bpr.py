@@ -3,8 +3,9 @@ Horner fold over windows (total = sum_w 2^(c*w) * S_w).
 
 Kernels: csrc/bpr.cu, replacing the JAX package's
 ops/pallas/bpr.py::_bpr_stage1_kernel, ::_bpr_stage2_kernel and
-::_horner_kernel.  The reduction across chunks runs on the masked-add
-kernel (csrc/ec.cu) in the JAX package's order (first half + second half).
+::_horner_kernel.  The reduction across chunks, a loop of masked adds in
+the JAX package, is one launch of csrc/ec.cu's reduce kernel, in the same
+order (first half + second half).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .ec import (
     full_add,
     identity_row,
     masked_add_rows,
+    masked_add_rows_plain,
     pt_identity,
     pt_select,
     pt_to_rows,
@@ -98,23 +100,61 @@ def bpr_stage2(m: torch.Tensor, g: torch.Tensor, chunks_per_window: int,
     return out
 
 
+#: Rows of one window that the reduce kernel holds in shared memory (as
+#: csrc/ec.cu's REDUCE_MAX_ROWS): a window of more rows is first halved by
+#: masked adds until it fits.
+REDUCE_MAX_ROWS = 1024
+
+
+def _windows(rows: torch.Tensor, per_window: int) -> int:
+    if per_window & (per_window - 1):
+        raise ValueError(f"per_window={per_window} is not a power of two")
+    return rows.shape[0] // per_window
+
+
+def _halve(rows: torch.Tensor, w: int, cur: int, add) -> torch.Tensor:
+    """One round: of each window's `cur` rows, the first half plus the
+    second half, row by row, with the masked add `add`."""
+    half = cur // 2
+    r3 = rows.reshape(w, cur, TW)
+    a = r3[:, :half].reshape(w * half, TW)
+    b = r3[:, half:].reshape(w * half, TW)
+    ones = torch.ones((w * half,), dtype=torch.int32, device=rows.device)
+    return add(a, b, ones)
+
+
+def reduce_rows_per_window_plain(rows: torch.Tensor, per_window: int) -> torch.Tensor:
+    """Plain version of :func:`reduce_rows_per_window`: the JAX package's
+    loop of masked adds, one a round."""
+    w = _windows(rows, per_window)
+    cur = per_window
+    while cur > 1:
+        rows = _halve(rows, w, cur, masked_add_rows_plain)
+        cur //= 2
+    return rows.reshape(w, TW)
+
+
 def reduce_rows_per_window(rows: torch.Tensor, per_window: int) -> torch.Tensor:
     """Log-depth reduction of [W*per_window, TW] packed rows to [W, TW]:
     each round adds the second half of every window's rows to its first
-    half.  per_window must be a power of two."""
-    w = rows.shape[0] // per_window
-    if per_window & (per_window - 1):
-        raise ValueError(f"per_window={per_window} is not a power of two")
+    half.  per_window must be a power of two.  On CUDA tensors every round
+    runs in one launch of csrc/ec.cu's reduce kernel (after rounds of the
+    masked add while a window exceeds REDUCE_MAX_ROWS rows); CPU tensors
+    take the plain version."""
+    w = _windows(rows, per_window)
+    _build.capture("reduce_rows", rows, per_window)
+    if not _build.on_cuda(rows):
+        return reduce_rows_per_window_plain(rows, per_window)
+    if per_window == 1:
+        return rows.reshape(w, TW)
     cur = per_window
-    while cur > 1:
-        half = cur // 2
-        r3 = rows.reshape(w, cur, TW)
-        a = r3[:, :half].reshape(w * half, TW)
-        b = r3[:, half:].reshape(w * half, TW)
-        ones = torch.ones((w * half,), dtype=torch.int32, device=rows.device)
-        rows = masked_add_rows(a, b, ones)
-        cur = half
-    return rows.reshape(w, TW)
+    while cur > REDUCE_MAX_ROWS:
+        rows = _halve(rows, w, cur, masked_add_rows)
+        cur //= 2
+    rows = _build.check(rows, torch.int32, (w * cur, TW), "rows")
+    out = torch.empty((w, TW), dtype=torch.int32, device=rows.device)
+    _build.launch("reduce_rows", "ec", "msm_reduce_rows_per_window", rows, out, w, cur)
+    return out
 
 
 def bpr(buckets: torch.Tensor, num_windows: int) -> torch.Tensor:

@@ -137,11 +137,13 @@ _N0D = (-pow(PARAMS.p, -1, 1 << _D)) % (1 << _D)
 
 def make_digit_consts() -> dict:
     """The constants of csrc/field26.cuh (the point formulas in 26-bit
-    digits of csrc/ec26.cuh): p, R mod p, d*R mod p and the headroom form of
-    4p as lists of 26-bit digits, and N0' = -p^-1 mod 2^26."""
+    digits of csrc/ec26.cuh, and the table conversion): p, R mod p,
+    R^2 mod p, d*R mod p and the headroom form of 4p as lists of 26-bit
+    digits, and N0' = -p^-1 mod 2^26."""
     def digits(v: int) -> list[int]:
         return [(v >> (i * _D)) & _DMASK for i in range(LP)]
-    return {"p": digits(PARAMS.p), "r": digits(PARAMS.r), "d": digits(PARAMS.edwards_d_mont),
+    return {"p": digits(PARAMS.p), "r": digits(PARAMS.r), "r2": digits(PARAMS.r2),
+            "d": digits(PARAMS.edwards_d_mont),
             "q4": _q4_digits(_D).tolist(), "n0": _N0D}
 
 

@@ -7,8 +7,9 @@ that precompute_msm_base built first, untraced) once to warm up, then once
 under torch.profiler, on the inputs chip_smoke.py uses (points from the
 native oracle's generator, scalars from a seeded numpy generator, both
 resident on the card).  Prints one JSON object: the host wall time of the
-traced run, the device time summed by kernel name, the card's busy time (the
-union of its kernel and copy intervals) and its idle share of the wall time.
+traced run, the device time summed by kernel name and by family
+(kernel_families), the card's busy time (the union of its kernel and copy
+intervals) and its idle share of the wall time.
 It needs a CUDA card.
 """
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 from collections import defaultdict
@@ -37,6 +39,29 @@ def bench_inputs(n: int):
     sc = rng.integers(0, 1 << 62, size=(n, 4), dtype=np.uint64)
     sc[:, 3] &= (1 << 58) - 1                       # < 2^250 < the subgroup order
     return pts, sc
+
+
+def kernel_families(kernels: list[dict]) -> dict[str, list]:
+    """Device ms and launches of device_profile's kernels, summed by family:
+    each of the port's kernels (msm::<name>) under its name; PyTorch's
+    gathers, radix sorts, and copies and concatenations; every other
+    PyTorch kernel, memset or copy as "other torch"."""
+    fam: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for k in kernels:
+        name = k["name"]
+        if "msm::" in name:
+            key = re.match(r"\w+", name.split("msm::", 1)[1]).group(0)
+        elif "gather" in name:
+            key = "torch gathers"
+        elif "RadixSort" in name:
+            key = "sort"
+        elif "copy" in name or "Cat" in name or "Memcpy" in name:
+            key = "torch copies and cat"
+        else:
+            key = "other torch"
+        fam[key][0] += k["ms"]
+        fam[key][1] += k["count"]
+    return dict(sorted(fam.items(), key=lambda kv: -kv[1][0]))
 
 
 def device_profile(fn) -> dict:
@@ -72,7 +97,8 @@ def device_profile(fn) -> dict:
                       for k, v in by_name.items()), key=lambda r: -r["ms"])
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1 - busy_us / wall_us if spans else None,
-            "device_events": len(spans), "kernels": kernels}
+            "device_events": len(spans), "families": kernel_families(kernels),
+            "kernels": kernels}
 
 
 def main() -> int:
