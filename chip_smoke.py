@@ -9,9 +9,9 @@ Phases (any failure raises and exits non-zero):
    each kernel function's registers and spills, the IMAD.WIDE.U32 count of
    the main path's scan (cuobjdump -sass), from which MONT is taken, and
    the registers, stack frame and calls of the kernels whose point or field
-   operations are inlined (INLINED: the carry scan, bpr_stage1, the Horner
-   fold, the masked add, the per-window reduce, the table conversion; a
-   frame or a call fails);
+   operations are inlined (INLINED: the carry scan, bpr_stage1, bpr_stage2,
+   the Horner fold, the masked add, the per-window reduce, the table
+   conversion, the normalization; a frame or a call fails);
 3. the main path: compute_msm at 2^16 points (c=13) and at 2^20 points
    (c=16) on inputs resident on the card (points from the native oracle's
    generator, scalars from a seeded numpy generator): kernel launch counts
@@ -23,7 +23,8 @@ Phases (any failure raises and exits non-zero):
 4. each of the nine kernels replayed on the inputs of its largest call in
    the 2^20 run, held bit for bit against its plain PyTorch version, and
    timed beside that version, the PyTorch library call that computes the
-   same function (where one exists) and its bound;
+   same function (where one exists) and its bound; bpr_stage2 also held on
+   the 2^16 run's input;
 5. the fixed-base path on the 2^20 inputs: precompute_msm_base (c=16, W'=16,
    a merged table of 2^24 rows) timed with its launch counts, then
    compute_msm_precomputed with its launch counts (the single table read by
@@ -32,7 +33,9 @@ Phases (any failure raises and exits non-zero):
    oracle), and once more forced into two entry blocks;
 6. the four kernels of the fixed-base path replayed as in 4; the whole
    output of each row-wise one (convert_pair, double_rows, normalize) is
-   held against its plain version in chunks of PLAIN_ROWS rows;
+   held against its plain version in chunks of PLAIN_ROWS rows; normalize
+   also on each of the precompute's other inputs and bpr_stage2 on the
+   fixed-base MSM's input;
 7. the scan configurations at 2^20: compute_msm under each setting of the
    pipeline's switches in CONFIGS (the module attributes, set and restored
    here), launch counts of one run from zero, then one warm and three
@@ -64,6 +67,7 @@ nvidia-smi and one JSON object {"kernels": [...]}, and as its last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -137,9 +141,9 @@ def ptxas_function(lib: str, part: str) -> str:
 #: (library, kernel) of the kernels whose point or field operations are
 #: inlined (csrc/ec26.cuh, csrc/field26.cuh): no stack frame and no call, or
 #: phase 2 fails.
-INLINED = (("scan", "ab_scan_kernel"), ("bpr", "bpr_stage1_kernel"), ("bpr", "horner_kernel"),
-           ("ec", "masked_add_kernel"), ("ec", "reduce_rows_kernel"),
-           ("convert", "convert_kernel"))
+INLINED = (("scan", "ab_scan_kernel"), ("bpr", "bpr_stage1_kernel"), ("bpr", "bpr_stage2_kernel"),
+           ("bpr", "horner_kernel"), ("ec", "masked_add_kernel"), ("ec", "reduce_rows_kernel"),
+           ("convert", "convert_kernel"), ("precompute", "normalize_kernel"))
 #: masked_add launches of one MSM at 2^16 and 2^20 points and in the fixed
 #: base (one entry block): the bucket extraction and the carry scan's two
 #: carry applies; the per-window reduce after BPR is one reduce_rows launch.
@@ -160,6 +164,46 @@ def check_inlined(lib: str, kernel: str) -> None:
         f"{'calls not counted' if calls is None else f'{calls} calls'}")
     if frame or calls is None or calls:
         raise AssertionError(f"{kernel} has a stack frame or calls: {line}, {calls}")
+
+
+@contextlib.contextmanager
+def every_call(*kernels: str):
+    """Within the block, keep the arguments of every call of the wrappers of
+    `kernels` (by capture and launch key): yields {kernel: [args, ...]}."""
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+
+    record, calls = _build.capture, {k: [] for k in kernels}
+
+    def capture(kernel, *args):
+        if kernel in calls:
+            calls[kernel].append(args)
+        record(kernel, *args)
+
+    _build.capture = capture
+    try:
+        yield calls
+    finally:
+        _build.capture = record
+
+
+def hold_calls(name: str, wrapper, plain, calls: list, chunk: int | None = None) -> None:
+    """Hold the kernel's whole output on each call's arguments bit for bit
+    against its plain version (a row-wise kernel's in chunks of `chunk`
+    rows); raise on a difference."""
+    for args in calls:
+        got = wrapper(*args)
+        n = args[0].shape[0]
+        step = chunk or n
+        for i in range(0, n, step):
+            sub = tuple(a[i:i + step] if chunk and isinstance(a, torch.Tensor)
+                        and a.shape[0] == n else a for a in args)
+            err = max_err(name, (got[i:i + step],), (plain(*sub),))
+            if err:
+                raise AssertionError(f"{name}: kernel differs from its plain version (max abs "
+                                     f"err {err}) on {[tuple(a.shape) for a in args[:1]]}")
+        del got
+    log(f"kernel {name}: match on {len(calls)} more call(s), rows "
+        f"{[a[0].shape[0] for a in calls]}")
 
 
 def card_inputs(n: int):
@@ -189,16 +233,13 @@ def main_path(n: int, capture: bool) -> dict:
 
     _build.captures = {} if capture else None
     _build.reset_launch_counts()
-    # Every masked_add call of this run, for the bound of all of them.
-    record, masked_adds = _build.capture, []
-    _build.capture = lambda kernel, *args: (
-        masked_adds.append(args) if kernel == "masked_add" else None, record(kernel, *args))
-    try:
+    # Every masked_add call of this run, for the bound of all of them; the
+    # bpr_stage2 call, held against its plain version at every size.
+    with every_call("masked_add", "bpr2") as calls:
         t0 = time.time()
         res = compute_msm(coords, scalars)
         first_ms = (time.time() - t0) * 1e3
-    finally:
-        _build.capture = record
+    masked_adds = calls["masked_add"]
     launches = dict(_build.launches)
     captures, _build.captures = _build.captures, None
     masked_add_bound_ms = sum(bound_ms(*work("masked_add", args, args[0])) for args in masked_adds)
@@ -218,7 +259,8 @@ def main_path(n: int, capture: bool) -> dict:
     return {"n": n, "launches": launches, "groups": groups, "first_ms": first_ms,
             "runs_ms": times, "median_ms": statistics.median(times), "oracle": "MATCH",
             "oracle_s": oracle_s, "masked_add_rows": [a[0].shape[0] for a in masked_adds],
-            "masked_add_bound_ms": masked_add_bound_ms, "captures": captures, "result": res}
+            "masked_add_bound_ms": masked_add_bound_ms, "captures": captures,
+            "bpr2_calls": calls["bpr2"], "result": res}
 
 
 #: Kernels each run of the fixed-base path must launch.
@@ -238,10 +280,11 @@ def fixed_base_path(n: int, want: dict) -> dict:
     _, _, coords, scalars = card_inputs(n)
     _build.captures = {}
     _build.reset_launch_counts()
-    t0 = time.time()
-    pre = precompute_msm_base(coords)
-    torch.cuda.synchronize()
-    precompute_s = time.time() - t0
+    with every_call("normalize") as pre_calls:
+        t0 = time.time()
+        pre = precompute_msm_base(coords)
+        torch.cuda.synchronize()
+        precompute_s = time.time() - t0
     pre_launches = dict(_build.launches)
     if pre_launches != PRECOMPUTE_LAUNCHES:
         raise AssertionError(f"precompute launches {pre_launches}, expected {PRECOMPUTE_LAUNCHES}")
@@ -250,9 +293,10 @@ def fixed_base_path(n: int, want: dict) -> dict:
                              f"table {tuple(pre.table.shape)}")
 
     _build.reset_launch_counts()
-    t0 = time.time()
-    res = compute_msm_precomputed(pre, scalars)
-    first_ms = (time.time() - t0) * 1e3
+    with every_call("bpr2") as msm_calls:
+        t0 = time.time()
+        res = compute_msm_precomputed(pre, scalars)
+        first_ms = (time.time() - t0) * 1e3
     launches = dict(_build.launches)
     captures = {k: v for k, v in _build.captures.items()
                 if k in ("convert_pair", "double_rows", "normalize", "scan_table_signed")}
@@ -298,7 +342,7 @@ def fixed_base_path(n: int, want: dict) -> dict:
             "launches": launches, "first_ms": first_ms, "runs_ms": times,
             "median_ms": statistics.median(times), "two_block_ms": two_block_ms,
             "two_block_launches": launches2, "equals_compute_msm": True,
-            "captures": captures}
+            "captures": captures, "calls": {**pre_calls, **msm_calls}}
 
 
 #: Phase 7: configuration name, switch settings (attributes of
@@ -573,8 +617,14 @@ def work(name: str, args, out) -> tuple[int, int]:
     if name == "double_rows":
         return moved, args[0].shape[0] * args[1] * DOUBLE
     if name == "normalize":
-        # A squaring per bit of p-2, a multiply per set bit, then x and y.
-        return moved, args[0].shape[0] * (EXP_BITS + bin(EXP).count("1") + 2) * MONT
+        # The batch inversion's least work: per row a prefix product, two
+        # products back and x, y (5), and one inversion a call (a squaring
+        # per bit of p-2, a multiply per set bit); the 3·LP used words of x,
+        # y and z read, the whole rows written.
+        from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.common import LP
+        rows = args[0].shape[0]
+        return (4 * 3 * LP * rows + nbytes(*outs),
+                (5 * rows + EXP_BITS + bin(EXP).count("1")) * MONT)
     raise KeyError(name)
 
 
@@ -878,6 +928,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import bpr as B
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import precompute as PK
     from webgpu_msm_twisted_edwards_tpu_torch.utils.runtime import card_info
 
     t_start = time.time()
@@ -916,6 +968,8 @@ def main() -> int:
             raise AssertionError(f"2^{logn}: launches {r['launches']}, {r['groups']} window "
                                  f"groups")
     kernels = kernels_phase(main_specs, e2e["2^20"].pop("captures"), e2e["2^20"]["launches"])
+    e2e["2^20"].pop("bpr2_calls")
+    hold_calls("bpr2 (2^16)", B.bpr_stage2, B.bpr_stage2_plain, e2e["2^16"].pop("bpr2_calls"))
 
     t_fb = time.time()
     fb = fixed_base_path(1 << 20, e2e["2^20"]["result"])
@@ -926,7 +980,22 @@ def main() -> int:
         f"equal to compute_msm and the oracle, launches {fb['launches']}; two blocks "
         f"{fb['two_block_ms']:.1f} ms, equal, launches {fb['two_block_launches']}")
     fb_launches = {**fb["launches"], **fb["precompute_launches"]}
-    kernels += kernels_phase(fixed_specs, fb.pop("captures"), fb_launches)
+    captures = fb.pop("captures")
+    kernels += kernels_phase(fixed_specs, captures, fb_launches)
+    calls = fb.pop("calls")
+    # The replay held the captured call; every other call is held here.
+    rows = captures["normalize"][1][0]
+    rest = [args for args in calls["normalize"] if args[0] is not rows]
+    if len(rest) != len(calls["normalize"]) - 1:
+        raise AssertionError("normalize: the replayed call is not one of the precompute's")
+    hold_calls("normalize", PK.normalize_rows, PK.normalize_rows_plain, rest, PLAIN_ROWS)
+    hold_calls("bpr2 (fixed base)", B.bpr_stage2, B.bpr_stage2_plain, calls["bpr2"])
+    fermat = rows.shape[0] * (PK.EXP_BITS + bin(PK.EXP).count("1") + 2) * MONT
+    row = next(k for k in kernels if k["name"] == "normalize")
+    log(f"normalize bound: {row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"(batch inversion); {bound_ms(0, fermat):.4f} ms by the Fermat chain's count, "
+        f"388 products a row")
+    del captures, calls, rows, rest, row
     fb["phase_s"] = time.time() - t_fb
     log(f"fixed-base phase with its kernel replay: {fb['phase_s']:.1f} s")
 

@@ -238,12 +238,14 @@ def test_seg_carry_scan_kernels_match_plain(dev):
 
 
 @pytest.mark.parametrize("rows,chunks_per_window", [
-    (2 * 256, 4), (13 * B.CHUNK, 13), (1 << 15, 512), (1 << 19, 1024)])
+    (2 * 256, 4), (13 * B.CHUNK, 13), (1 << 15, 512), (1280 * B.CHUNK, 64), (1 << 19, 1024)])
 def test_bpr_stages(dev, rows, chunks_per_window):
     """Both stages against their plain versions: two small windows; 13
-    chunks, so the last warp of stage 1 (four chunks of eight lanes) is
-    ragged; the fixed base's 512 chunks; the 2^20 path's 8192 chunks
-    (eight windows of 2^16 buckets)."""
+    chunks, so the last warp of stage 1 (four chunks of eight lanes) and of
+    stage 2 (eight chunks of four lanes) is ragged; the fixed base's 512
+    chunks; the 2^16 path's 1280 chunks (20 windows of 4096 buckets, a
+    factor of 12 bits); the 2^20 path's 8192 chunks (eight windows of 2^16
+    buckets)."""
     rng = np.random.default_rng(8)
     buckets = _point_rows(rng, rows, dev)
     m, g = B.bpr_stage1(buckets)
@@ -291,10 +293,50 @@ def test_double_rows(dev):
         assert _same(E.double_rows(rows, times), E.double_rows_plain(rows, times))
 
 
-def test_normalize_rows(dev):
-    rows = _point_rows(np.random.default_rng(12), 300, dev)
-    rows[7] = 0                                              # z = 0 inverts to 0
-    assert _same(PK.normalize_rows(rows), PK.normalize_rows_plain(rows))
+#: csrc/precompute.cu's NORM_K rows a thread and NORM_T threads a block:
+#: a batch of the kernel's inversion is the K rows i*T + t (i < K) of
+#: thread t, T*K rows a block.
+NORM_K, NORM_T = 16, 128
+#: A row inside a batch (thread 7's middle row).
+NORM_MID = (NORM_K // 2) * NORM_T + 7
+
+
+def _normalize_rows_case(case, dev):
+    """Rows for normalize_rows: the zero rows sit at a batch's ends, fill a
+    batch or a block, and z = p (0 mod p, words not 0) sits inside a
+    batch."""
+    k, t = NORM_K, NORM_T
+    rng = np.random.default_rng(12)
+    if case.startswith("n="):
+        return _point_rows(rng, int(case[2:]), dev)
+    rows = _point_rows(rng, 2 * k * t + 77, dev)
+    if case == "double_rows":
+        return E.double_rows(rows, 16)                   # lazy z, below 1.21p
+    if case == "zero at batch ends":
+        for r in (0, (k - 1) * t, k * t + 5, k * t + 5 + (k - 1) * t, 2 * k * t - 1):
+            rows[r] = 0
+    elif case == "zero batch":
+        rows[3:k * t:t] = 0
+    elif case == "zero block":
+        rows[k * t:2 * k * t] = 0
+    elif case == "z = p":
+        limbs = np.array([(PARAMS.p >> (13 * i)) & 0x1FFF for i in range(20)], dtype=np.int64)
+        words = limbs[0::2] | (limbs[1::2] << 16)
+        rows[NORM_MID, 30:40] = torch.from_numpy(words.astype(np.int32)).to(dev)
+    return rows
+
+
+NORMALIZE_CASES = ["n=1", "n=31", "n=300", "n=4097", "zero at batch ends", "zero batch",
+                   "zero block", "z = p", "double_rows"]
+
+
+@pytest.mark.parametrize("case", NORMALIZE_CASES)
+def test_normalize_rows(dev, case):
+    rows = _normalize_rows_case(case, dev)
+    want = PK.normalize_rows_plain(rows)
+    assert _same(PK.normalize_rows(rows), want)
+    if case == "z = p":
+        assert not want[NORM_MID].any()
 
 
 @pytest.mark.parametrize("case", SCAN_CASES + ["every sign"])

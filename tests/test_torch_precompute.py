@@ -133,6 +133,57 @@ def test_exponent_constant_matches_the_field():
     assert int(re.search(r"#define MSM_EXP_BITS (\d+)", src).group(1)) == KP.EXP_BITS == 253
 
 
+def _double_rows_bounds() -> tuple[int, int, int]:
+    """Bounds on ops/kernels/ec.py::double's f and g and on the z = f*g it
+    returns, iterated from canonical coordinates (the precompute's first
+    rows) to their fixed point (double_rows feeds its rows back): a lazy
+    product of inputs below u and v is below p + u*v/R (Q < R), a - b + 4p
+    below a + 4p, 4p - a at most 4p."""
+    r = 1 << (C.L * C.W)
+
+    def prod(u, v):
+        return P + u * v // r + 1
+
+    b = P
+    for _ in range(8):
+        a, e_in = prod(b, b), prod(2 * b, 2 * b)
+        d = 4 * P
+        e, h, g = e_in + 4 * P, d + 4 * P, d + a
+        f = g + 4 * P
+        b = max(prod(e, f), prod(g, h), prod(e, h), prod(f, g))
+    return f, g, prod(f, g)
+
+
+def test_normalize_rows_plain_is_canonical_on_lazy_z():
+    """The premise of the kernel's batch inversion (csrc/precompute.cu): on
+    the lazy z that double_rows makes (below 1.21p), on z = p and on z = 0,
+    normalize_rows_plain gives the canonical words of x*z^-1*R and y*z^-1*R
+    mod p, and zeros where z = 0 mod p.  Canonical residues are unique, so
+    any exact schedule of reduced products gives these words."""
+    f, g, zb = _double_rows_bounds()
+    assert 100 * f < 901 * P and 100 * g < 501 * P and 100 * zb < 121 * P
+    rng = np.random.default_rng(21)
+    zs = [int.from_bytes(rng.bytes(40), "little") % zb for _ in range(8)]
+    zs += [zb - 1, P + 1, P, 0]
+    xs = [int.from_bytes(rng.bytes(40), "little") % zb for _ in zs]
+    ys = [int.from_bytes(rng.bytes(40), "little") % zb for _ in zs]
+    rows = np.zeros((len(zs), KE.TW), dtype=np.uint32)
+    for i, vals in enumerate(zip(xs, ys, ys, zs)):
+        for ci, v in enumerate(vals):
+            limbs = C.int_to_limbs(v)
+            rows[i, ci * 10:(ci + 1) * 10] = limbs[0::2] | (limbs[1::2] << 16)
+    got = to_numpy_u32(KP.normalize_rows_plain(from_numpy_u32(rows)))
+    r = 1 << (C.L * C.W)
+    for i, (x, y, z) in enumerate(zip(xs, ys, zs)):
+        zinv = pow(z, -1, P) if z % P else 0
+        for ci, v in enumerate((x * zinv * r % P, y * zinv * r % P)):
+            word = got[i, ci * 10:(ci + 1) * 10].astype(np.int64)
+            limbs = np.stack([word & 0xFFFF, word >> 16], axis=-1).reshape(-1)
+            assert all(limbs < 1 << C.W)
+            assert sum(int(l) << (C.W * k) for k, l in enumerate(limbs)) == v < P
+        assert not got[i, 20:].any()
+
+
 def test_build_table_pair_matches_jax():
     coords = _coords(_affine_points(128, 1))
     want = JPC.build_table_pair(jnp.asarray(coords), interpret=True)

@@ -1,17 +1,17 @@
 // Bucket-point reduction and the Horner fold over windows.
 #include <cuda_runtime.h>
 
-#include "ec.cuh"
 #include "ec26.cuh"
 
 namespace msm {
 
 // Lanes that share one point operation (full_add26_x4, pt_double26_x4).  A
-// chunk of bpr_stage1 takes two such groups, one for each of its chains, in
-// one-warp blocks.
+// chunk of bpr_stage1 takes two such groups, one for each of its chains, a
+// chunk of bpr_stage2 one; both run in one-warp blocks.
 constexpr int BPR_LANES = 4;
 constexpr int BPR1_LANES = 2 * BPR_LANES;
 constexpr int BPR1_THREADS = 32;
+constexpr int BPR2_THREADS = 32;
 
 // The point of the lane `mask` away (every lane of the warp takes part).
 __device__ __forceinline__ PtD ptd_shfl_xor(const PtD& p, int mask) {
@@ -77,25 +77,46 @@ bpr_stage1_kernel(const uint32_t* __restrict__ buckets, uint32_t* __restrict__ m
 // chunk) by MSB-first double-and-add over num_bits bits, the lane being the
 // global chunk index (pl.program_id * lblk + lane in the JAX kernel).
 //
-// Bound on the H100: operations (num_bits doublings and up to 2*num_bits+1
-// full adds per chunk; the JAX kernel computes every add and selects).
-// Design: one thread per chunk; the add is skipped where the bit is 0.
-__global__ void __launch_bounds__(128)
+// Bound on the H100: by count, operations (num_bits doublings, an add per
+// set bit of the factor and the final add, per chunk); in fact latency
+// where chunks are few (512 in the fixed base, 1280 at 2^16 points): each
+// chunk is a chain of num_bits dependent doublings and the adds between.
+// Design: as Horner's ladder (horner_kernel below), the chain is shortened
+// and kept in registers: four lanes a chunk, the doubling pt_double26_x4 (2
+// dependent products where one thread has 8) and the add full_add26_x4 (3
+// where it has 9), inlined, m, acc and g in 26-bit digits from their row
+// loads to the store, no call and no stack frame.  The groups shuffle with
+// the full mask, so a group may not skip an add that its warp-mates run:
+// the warp takes a bit's add when some chunk of it has the bit set, and
+// each chunk keeps the sum only where its own bit is set.  The plain
+// version computes every add and selects likewise, so the kept value is
+// the same; chunk = 64 makes the factor's six low bits 0 in every chunk,
+// and a warp's eight neighbouring chunks share most high bits, so most of
+// the adds are skipped warp-wide.  The order is the plain version's: acc
+// starts at the identity and doubles MSB first (the leading doublings of
+// the identity stay: they change its representative), and the last add is
+// g + acc, g first.  Lanes past the last chunk repeat it, for the
+// shuffles, and store nothing; lane 0 of each group stores.
+__global__ void __maxnreg__(255)
 bpr_stage2_kernel(const uint32_t* __restrict__ m_in, const uint32_t* __restrict__ g_in,
                   uint32_t* __restrict__ out, long long nc, long long chunks_per_window,
                   int chunk, int num_bits) {
-  const long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (l >= nc) return;
-  const long long kfac = (l % chunks_per_window) * chunk;
-  const Pt m = pt_load(m_in + l * MSM_TW);
-  Pt acc = pt_identity();
+  const long long t = blockIdx.x * (long long)BPR2_THREADS + threadIdx.x;
+  const int q = threadIdx.x & (BPR_LANES - 1);
+  const bool store = t / BPR_LANES < nc && q == 0;
+  const long long l = min(t / BPR_LANES, nc - 1);
+  // 32-bit: a 64-bit remainder is a call.
+  const int kfac = (int)l % (int)chunks_per_window * chunk;
+  const PtD m = ptd_load_packed(m_in + l * MSM_TW);
+  PtD acc = ptd_identity();
 #pragma unroll 1
-  for (int i = 0; i < num_bits; ++i) {
-    const int bit = num_bits - 1 - i;
-    acc = pt_double(acc);
-    if ((kfac >> bit) & 1) acc = full_add(acc, m);
+  for (int bit = num_bits - 1; bit >= 0; --bit) {
+    acc = pt_double26_x4(acc, q);
+    const bool set = (kfac >> bit) & 1;
+    if (__any_sync(0xFFFFFFFFu, set)) acc = ptd_select(set, full_add26_x4(acc, m, q), acc);
   }
-  pt_store(out + l * MSM_TW, full_add(pt_load(g_in + l * MSM_TW), acc));
+  const PtD sum = full_add26_x4(ptd_load_packed(g_in + l * MSM_TW), acc, q);
+  if (store) ptd_store_packed(out + l * MSM_TW, sum);
 }
 
 #define MSM_HORNER_MAX_LANES 64
@@ -162,9 +183,9 @@ extern "C" int msm_bpr_stage2(const void* m, const void* g, void* out, long long
                               long long chunks_per_window, long long chunk, long long num_bits,
                               void* stream) {
   if (nc > 0) {
-    const int threads = 128;
-    const long long blocks = (nc + threads - 1) / threads;
-    msm::bpr_stage2_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const long long blocks =
+        (nc * msm::BPR_LANES + msm::BPR2_THREADS - 1) / msm::BPR2_THREADS;
+    msm::bpr_stage2_kernel<<<blocks, msm::BPR2_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)m, (const uint32_t*)g, (uint32_t*)out, nc, chunks_per_window,
         (int)chunk, (int)num_bits);
   }

@@ -91,10 +91,10 @@ __device__ __forceinline__ void load_cached(const uint32_t* row, Fe& d2, Fe& s2,
 // inlined into loop kernels, nvcc's front end (cicc, CUDA 12.8) dies with a
 // segmentation fault.  Their arguments and results then pass through the
 // stack frame (local memory, cached in L1).  The kernels that still call
-// them: bpr_stage2 (bpr.cu), double_rows and extract_reconstruct (ec.cu),
-// and the probes' scans (probe_scan.cuh).  The scans, the carry scan,
-// bpr_stage1, the Horner fold, the masked add and the per-window reduce run
-// the 26-bit formulas of ec26.cuh, which inline.
+// them: double_rows and extract_reconstruct (ec.cu), and the probes' scans
+// (probe_scan.cuh).  The scans, the carry scan, both BPR stages, the Horner
+// fold, the masked add and the per-window reduce run the 26-bit formulas of
+// ec26.cuh, which inline.
 
 // ec.py::madd — p1 + a table point in cached form (d2 = y2-x2, s2 = y2+x2,
 // td2 = 2*d*t2, affine with Z = R).  Accumulator coordinates < 1.3p, table

@@ -1,7 +1,8 @@
 // Extended twisted Edwards point arithmetic in the 26-bit digits of
 // csrc/field26.cuh: the scans (csrc/scan.cuh), the carry scan
-// (csrc/scan.cu), bpr_stage1 and the Horner fold (csrc/bpr.cu), the masked
-// add and the per-window reduce (csrc/ec.cu).
+// (csrc/scan.cu), both BPR stages and the Horner fold (csrc/bpr.cu), the
+// masked add and the per-window reduce (csrc/ec.cu); its warp-staged row
+// store also serves the normalization (csrc/precompute.cu).
 //
 // madd26, full_add26, full_add26_x4 and pt_double26_x4 repeat ec.cuh's
 // madd, full_add and pt_double (ec.py::madd, ::full_add, ::double)

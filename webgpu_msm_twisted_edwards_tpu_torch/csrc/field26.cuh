@@ -1,7 +1,8 @@
 // Field arithmetic in 26-bit digits, for the point formulas of csrc/ec26.cuh
-// (the scans' madd, the full add of the carry scan, bpr_stage1, the masked
-// add and the per-window reduce, the Horner fold's doubling) and for the
-// table conversion (csrc/convert.cu).
+// (the scans' madd, the full add of the carry scan and of both BPR stages,
+// the masked add and the per-window reduce, the doubling of bpr_stage2 and
+// the Horner fold), for the table conversion (csrc/convert.cu) and for the
+// normalization's batch inversion (csrc/precompute.cu).
 //
 // An element is 10 little-endian digits of 26 bits in uint32_t, digit i =
 // limb 2i | limb 2i+1 << 13 of the 13-bit form of csrc/field.cuh: the same

@@ -3,7 +3,8 @@ precompute (ops/precompute.py): per row zinv = z^(p-2) (Fermat), then x*zinv
 and y*zinv, all reduced Montgomery products.
 
 Kernel: csrc/precompute.cu, replacing the JAX package's
-ops/precompute.py::_inv_norm_kernel (normalize_rows).
+ops/precompute.py::_inv_norm_kernel (normalize_rows).  The kernel inverts
+by Montgomery's batch inversion, which gives the same canonical words.
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ def normalize_rows_plain(rows: torch.Tensor) -> torch.Tensor:
 def normalize_rows(rows: torch.Tensor) -> torch.Tensor:
     """[N, TW] int32 packed projective Montgomery rows -> [N, TW] int32 rows
     holding the affine x*R (packed words 0..9) and y*R (words 10..19), then
-    zeros.  A bit of p-2 that is 0 skips its multiply; the JAX kernel
-    computes it and selects, which keeps the same value.  Launches
-    csrc/precompute.cu on CUDA tensors; CPU tensors take the plain
-    version."""
+    zeros; a row whose z is 0 mod p gives x = y = 0.  A bit of p-2 that is
+    0 skips its multiply; the JAX kernel computes it and selects, which
+    keeps the same value.  Launches csrc/precompute.cu on CUDA tensors (a
+    batch inversion: every value is a canonical residue, so the words are
+    the plain version's); CPU tensors take the plain version."""
     _build.capture("normalize", rows)
     if not _build.on_cuda(rows):
         return normalize_rows_plain(rows)
@@ -49,3 +51,4 @@ def normalize_rows(rows: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(rows)
     _build.launch("normalize", "precompute", "msm_normalize_rows", rows, out, n)
     return out
+

@@ -11,7 +11,7 @@ and all W'*n entries share one space of 2^(c-1) signed buckets.  Scalars
 below the subgroup order need only 253 bits, W' = ceil(253 / c) windows.
 
 Precompute: _to_mont_rows (torch ops), then per window double_rows (kernel,
-c doublings) and normalize_rows (kernel, Fermat inversion) with the
+c doublings) and normalize_rows (kernel, batch inversion) with the
 un-Montgomery and word repack in torch ops, then build_table (kernel) over
 the W'*n merged points.  Per MSM: the digits (torch ops), per entry block
 window_group_bucket_sums in block mode (sort, hist, gather, the signed scan,
