@@ -10,8 +10,9 @@ Phases (any failure raises and exits non-zero):
    the main path's scan (cuobjdump -sass), from which MONT is taken, and
    the registers, stack frame and calls of the kernels whose point or field
    operations are inlined (INLINED: the carry scan, bpr_stage1, bpr_stage2,
-   the Horner fold, the masked add, the per-window reduce, the table
-   conversion, the normalization; a frame or a call fails);
+   the Horner fold, the masked add, the per-window reduce, the quarter-store
+   extraction, the repeated doubling, the table conversion, the
+   normalization; a frame or a call fails);
 3. the main path: compute_msm at 2^16 points (c=13) and at 2^20 points
    (c=16) on inputs resident on the card (points from the native oracle's
    generator, scalars from a seeded numpy generator): kernel launch counts
@@ -33,9 +34,9 @@ Phases (any failure raises and exits non-zero):
    oracle), and once more forced into two entry blocks;
 6. the four kernels of the fixed-base path replayed as in 4; the whole
    output of each row-wise one (convert_pair, double_rows, normalize) is
-   held against its plain version in chunks of PLAIN_ROWS rows; normalize
-   also on each of the precompute's other inputs and bpr_stage2 on the
-   fixed-base MSM's input;
+   held against its plain version in chunks of PLAIN_ROWS rows; double_rows
+   and normalize also on each of the precompute's other inputs and
+   bpr_stage2 on the fixed-base MSM's input;
 7. the scan configurations at 2^20: compute_msm under each setting of the
    pipeline's switches in CONFIGS (the module attributes, set and restored
    here), launch counts of one run from zero, then one warm and three
@@ -96,10 +97,13 @@ PEAK_IMAD_PER_S = 67e12 / 4
 #: is 190 IMAD.WIDE.U32 (100 x_i*y_j and 90 q*p_j; p's low digit is 1 and
 #: the quotient digit is a negation), each counted as two 32-bit
 #: multiply-adds; phase 2 prints the count in the compiled scan.  (The
-#: 13-bit product of csrc/field.cuh, which the other kernels keep, is
-#: 20 * 42 = 840.)
+#: 13-bit product of csrc/field.cuh, which the probes' scans keep, is
+#: 20 * 42 = 840.)  A squaring needs only 55 of the 100 digit products
+#: (x_i*x_j once for i < j, then doubled) for the same column sums, so its
+#: least work is 2 * (55 + 90); a doubling's 8 products are 4 squarings.
 MONT = 2 * 190
-MADD, FULL_ADD, DOUBLE = 7 * MONT, 9 * MONT, 8 * MONT
+SQR = 2 * (55 + 90)
+MADD, FULL_ADD, DOUBLE = 7 * MONT, 9 * MONT, 4 * MONT + 4 * SQR
 
 RUNS = 5
 #: Rows of each call of a row-wise kernel's plain version: the kernel's
@@ -143,6 +147,7 @@ def ptxas_function(lib: str, part: str) -> str:
 #: phase 2 fails.
 INLINED = (("scan", "ab_scan_kernel"), ("bpr", "bpr_stage1_kernel"), ("bpr", "bpr_stage2_kernel"),
            ("bpr", "horner_kernel"), ("ec", "masked_add_kernel"), ("ec", "reduce_rows_kernel"),
+           ("ec", "extract_reconstruct_kernel"), ("ec", "double_rows_kernel"),
            ("convert", "convert_kernel"), ("precompute", "normalize_kernel"))
 #: masked_add launches of one MSM at 2^16 and 2^20 points and in the fixed
 #: base (one entry block): the bucket extraction and the carry scan's two
@@ -280,7 +285,7 @@ def fixed_base_path(n: int, want: dict) -> dict:
     _, _, coords, scalars = card_inputs(n)
     _build.captures = {}
     _build.reset_launch_counts()
-    with every_call("normalize") as pre_calls:
+    with every_call("double_rows", "normalize") as pre_calls:
         t0 = time.time()
         pre = precompute_msm_base(coords)
         torch.cuda.synchronize()
@@ -624,7 +629,7 @@ def work(name: str, args, out) -> tuple[int, int]:
         from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels.common import LP
         rows = args[0].shape[0]
         return (4 * 3 * LP * rows + nbytes(*outs),
-                (5 * rows + EXP_BITS + bin(EXP).count("1")) * MONT)
+                (5 * rows + bin(EXP).count("1")) * MONT + EXP_BITS * SQR)
     raise KeyError(name)
 
 
@@ -929,6 +934,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import bpr as B
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import ec as E
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import precompute as PK
     from webgpu_msm_twisted_edwards_tpu_torch.utils.runtime import card_info
 
@@ -984,17 +990,20 @@ def main() -> int:
     kernels += kernels_phase(fixed_specs, captures, fb_launches)
     calls = fb.pop("calls")
     # The replay held the captured call; every other call is held here.
-    rows = captures["normalize"][1][0]
-    rest = [args for args in calls["normalize"] if args[0] is not rows]
-    if len(rest) != len(calls["normalize"]) - 1:
-        raise AssertionError("normalize: the replayed call is not one of the precompute's")
-    hold_calls("normalize", PK.normalize_rows, PK.normalize_rows_plain, rest, PLAIN_ROWS)
+    for name, wrapper, plain in (("double_rows", E.double_rows, E.double_rows_plain),
+                                 ("normalize", PK.normalize_rows, PK.normalize_rows_plain)):
+        rows = captures[name][1][0]
+        rest = [args for args in calls[name] if args[0] is not rows]
+        if len(rest) != len(calls[name]) - 1:
+            raise AssertionError(f"{name}: the replayed call is not one of the precompute's")
+        hold_calls(name, wrapper, plain, rest, PLAIN_ROWS)
     hold_calls("bpr2 (fixed base)", B.bpr_stage2, B.bpr_stage2_plain, calls["bpr2"])
-    fermat = rows.shape[0] * (PK.EXP_BITS + bin(PK.EXP).count("1") + 2) * MONT
+    norm_rows = captures["normalize"][1][0].shape[0]
+    fermat = norm_rows * ((bin(PK.EXP).count("1") + 2) * MONT + PK.EXP_BITS * SQR)
     row = next(k for k in kernels if k["name"] == "normalize")
     log(f"normalize bound: {row['bound_ms']:.4f} ms by {row['bound_by']} "
         f"(batch inversion); {bound_ms(0, fermat):.4f} ms by the Fermat chain's count, "
-        f"388 products a row")
+        f"388 products a row, 253 of them squarings")
     del captures, calls, rows, rest, row
     fb["phase_s"] = time.time() - t_fb
     log(f"fixed-base phase with its kernel replay: {fb['phase_s']:.1f} s")

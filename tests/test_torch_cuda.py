@@ -287,10 +287,20 @@ def test_convert_pair(dev, n):
     assert _same(CV.build_table(coords), pair[0])
 
 
-def test_double_rows(dev):
-    rows = _point_rows(np.random.default_rng(11), 1000, dev)
-    for times in (1, 16):
-        assert _same(E.double_rows(rows, times), E.double_rows_plain(rows, times))
+@pytest.mark.parametrize("n,times,rounds", [(n, t, 1) for n in (1, 31, 33, 1000) for t in (1, 16)]
+                         + [(1000, 16, 2)])
+def test_double_rows(dev, n, times, rounds):
+    """One row, ragged warps and several blocks; padding words that are not
+    zero (the output's are); and the precompute's chain, the kernel's lazy
+    rows fed back through it (ops/precompute.py::shifted_base_coords)."""
+    rng = np.random.default_rng(11)
+    rows = _point_rows(rng, n, dev)
+    rows[:, 40:] = torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, E.TW - 40),
+                                                 dtype=np.int64).astype(np.int32)).to(dev)
+    for _ in range(rounds):
+        got = E.double_rows(rows, times)
+        assert _same(got, E.double_rows_plain(rows, times))
+        rows = got
 
 
 #: csrc/precompute.cu's NORM_K rows a thread and NORM_T threads a block:
@@ -529,15 +539,19 @@ def test_scan_fused(dev):
     assert _same(got, S.msm_scan(G.row_gather(table, pidx_t).reshape(256, S.K, S.TWR), keys))
 
 
-def test_extract_reconstruct(dev):
+@pytest.mark.parametrize("n", [1, 33, 1000])
+def test_extract_reconstruct(dev, n):
+    """Every one of the 32 bits values on some row (on the one row in turn),
+    same-segment bits without their step bit among them (ignored)."""
     rng = np.random.default_rng(21)
-    n = 1000
     table = CV.build_table_doubled_plain(_coords(rng, 64, dev))
     base, carry = _point_rows(rng, n, dev), _point_rows(rng, n, dev)
     pair = table[torch.from_numpy(rng.integers(0, 128, size=2 * n)).to(dev)].reshape(n, 2 * S.TWR)
-    bits = torch.from_numpy(rng.integers(0, 32, size=n).astype(np.int32)).to(dev)
-    assert _same(E.extract_reconstruct_rows(base, pair, bits, carry),
-                 E.extract_reconstruct_rows_plain(base, pair, bits, carry))
+    values = rng.permutation(np.arange(n) % 32)
+    for shift in range(32 if n < 32 else 1):
+        bits = torch.from_numpy(((values + shift) % 32).astype(np.int32)).to(dev)
+        assert _same(E.extract_reconstruct_rows(base, pair, bits, carry),
+                     E.extract_reconstruct_rows_plain(base, pair, bits, carry))
 
 
 #: Switch settings of the configurations of the bucket-sum stage, and the

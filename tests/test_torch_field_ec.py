@@ -80,8 +80,8 @@ def test_cuda_header_constants_match_consts_array():
     path = os.path.join(os.path.dirname(TC.__file__), "..", "..", "csrc", "field.cuh")
     src = open(path).read()
     arr = TC.make_consts_array()
-    for name, col in (("C_P", TC.CONST_P), ("C_D", TC.CONST_D), ("C_R", TC.CONST_R),
-                      ("C_R2", TC.CONST_R2), ("C_Q4", TC.CONST_Q4)):
+    for name, col in (("C_P", TC.CONST_P), ("C_R", TC.CONST_R), ("C_R2", TC.CONST_R2),
+                      ("C_Q4", TC.CONST_Q4)):
         body = re.search(name + r"\[MSM_L\] = \{([^}]*)\}", src).group(1)
         assert [int(v, 16) for v in body.replace(",", " ").split()] == arr[:, col].tolist(), name
     assert int(re.search(r"#define MSM_N0 (0x[0-9A-Fa-f]+)u", src).group(1), 16) == TP.PARAMS.n0

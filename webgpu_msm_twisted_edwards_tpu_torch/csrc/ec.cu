@@ -16,32 +16,61 @@
 // stack frame), from the row loads (ptd_load_packed) to the packed words;
 // a row whose mask is 0 skips the add (the JAX kernel computes and
 // discards it) and keeps its 40 words as they were loaded.  The warp writes
-// its 32 rows whole through shared memory (ec26.cuh::warp_store_packed):
-// two 256-byte rows a 16-byte store instruction, the 24 padding words zero.
+// its 32 rows whole through shared memory (row_store).
 // Rows hold normalized limbs (every packed row the pipeline makes), on
-// which the digits give ec.cuh's full_add bit for bit (ec26.cuh).
+// which the digits give the plain full add bit for bit (ec26.cuh).
 #include <cuda_runtime.h>
 
-#include "ec.cuh"
 #include "ec26.cuh"
 
 namespace msm {
 
-constexpr int MASKED_ADD_THREADS = 128;
+// Threads of a block of the row-wise kernels (masked add, doubling,
+// extraction): one row a thread, each warp's 32 rows staged in the block's
+// `slots` and written whole.
+constexpr int ROW_THREADS = 128;
 
-__global__ void __launch_bounds__(MASKED_ADD_THREADS)
+// The first row of this thread's warp in a row-wise kernel.  A warp whose
+// first row is n or more returns whole (the kernels sync only warps); the
+// lanes of the last warp past row n - 1 repeat it (row_of) and store
+// nothing (row_store).
+__device__ __forceinline__ long long row_warp0() {
+  return blockIdx.x * (long long)ROW_THREADS + (threadIdx.x & ~31);
+}
+
+__device__ __forceinline__ long long row_of(long long warp0, long long n) {
+  return min(warp0 + (threadIdx.x & 31), n - 1);
+}
+
+// The warp's output rows from each lane's 40 packed words w
+// (ec26.cuh::warp_store_packed): two 256-byte rows a 16-byte store
+// instruction, the 24 padding words zero.
+__device__ __forceinline__ void row_store(const uint32_t* w, uint32_t* slots,
+                                          uint32_t* __restrict__ out, long long warp0,
+                                          long long n) {
+  warp_store_packed(w, slots + threadIdx.x * ROW_SLOT, slots + (threadIdx.x & ~31) * ROW_SLOT,
+                    out + warp0 * MSM_TW, MSM_TW, (int)min(n - warp0, 32LL));
+}
+
+__device__ __forceinline__ void row_store(const PtD& p, uint32_t* slots,
+                                          uint32_t* __restrict__ out, long long warp0,
+                                          long long n) {
+  uint32_t w[4 * MSM_LP];
+  ptd_pack(p, w);
+  row_store(w, slots, out, warp0, n);
+}
+
+__global__ void __launch_bounds__(ROW_THREADS)
 masked_add_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                   const int32_t* __restrict__ mask, uint32_t* __restrict__ out, long long n) {
-  __shared__ __align__(16) uint32_t slots[MASKED_ADD_THREADS * ROW_SLOT];
-  const long long warp0 = blockIdx.x * (long long)MASKED_ADD_THREADS + (threadIdx.x & ~31);
-  if (warp0 >= n) return;  // the whole warp: the kernel syncs only warps
-  // Lanes past the last row repeat it and store nothing.
-  const long long i = min(warp0 + (threadIdx.x & 31), n - 1);
+  __shared__ __align__(16) uint32_t slots[ROW_THREADS * ROW_SLOT];
+  const long long warp0 = row_warp0();
+  if (warp0 >= n) return;
+  const long long i = row_of(warp0, n);
   uint32_t w[4 * MSM_LP];
   load_packed_words(a + i * MSM_TW, w);
   if (mask[i] != 0) ptd_pack(full_add26(ptd_from_packed(w), ptd_load_packed(b + i * MSM_TW)), w);
-  warp_store_packed(w, slots + threadIdx.x * ROW_SLOT, slots + (threadIdx.x & ~31) * ROW_SLOT,
-                    out + warp0 * MSM_TW, MSM_TW, (int)min(n - warp0, 32LL));
+  row_store(w, slots, out, warp0, n);
 }
 
 // Lanes that share one add in reduce_rows_kernel, the most threads of its
@@ -151,20 +180,34 @@ reduce_rows_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ out
 // chain of the fixed-base precompute (ops/precompute.py), c doublings per
 // window over every point.
 //
-// Bound on the H100: operations (times doublings, 8 products or about
-// 6.7 K multiply-adds each, per row against 512 bytes read and written).
-// Design: one thread per row, the point in registers across the `times`
-// dependent doublings; the stored row has its 24 padding words zero, as
-// the JAX kernel writes them.
-__global__ void __launch_bounds__(128)
+// Bound on the H100: operations (times doublings a row, each 4 products
+// and 4 squarings, 2680 multiply-adds at least (a squaring needs 55 of the
+// 100 digit products), against 512 bytes read and written: at the
+// precompute's 2^20 rows and times = 16, 2.684 ms).
+// Design: one thread per row, the doubling in the 26-bit digits of
+// csrc/field26.cuh (pt_double26, csrc/ec26.cuh, inlined: no call and no
+// stack frame), the point kept in registers as digits from its row load
+// (ptd_load_packed) across the `times` dependent doublings.  At 2^20 rows
+// the chains fill the card, so its issue rate counts, not a chain's
+// latency: one thread a row issues each product once, where four lanes a
+// row (pt_double26_x4) repeat the lazy operations on every lane and
+// exchange the products by shuffles (on an H100 at the precompute's 2^20
+// rows, 3.74 ms a launch against the four-lane form's 4.60).  The warp
+// writes its 32 rows whole through shared memory (row_store), the padding
+// words zero, as the JAX kernel writes them.
+// Input rows hold normalized limbs (the precompute's Montgomery rows, or
+// this kernel's lazy output fed back), on which the digits give the plain
+// doubling bit for bit (ec26.cuh).
+__global__ void __launch_bounds__(ROW_THREADS)
 double_rows_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, long long n,
                    int times) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Pt p = pt_load(in + i * MSM_TW);
+  __shared__ __align__(16) uint32_t slots[ROW_THREADS * ROW_SLOT];
+  const long long warp0 = row_warp0();
+  if (warp0 >= n) return;
+  PtD p = ptd_load_packed(in + row_of(warp0, n) * MSM_TW);
 #pragma unroll 1
-  for (int k = 0; k < times; ++k) p = pt_double(p);
-  pt_store(out + i * MSM_TW, p);
+  for (int k = 0; k < times; ++k) p = pt_double26(p);
+  row_store(p, slots, out, warp0, n);
 }
 
 // Replaces webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py::
@@ -174,32 +217,39 @@ double_rows_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, 
 // bits[i]: 1 step at 4q (restarting from the identity unless 4), 2 step at
 // 4q+1 (restarting unless 8), 16 add the carry.
 //
-// Bound on the H100: operations (up to two madds and one full add, about
-// 19 K multiply-adds, per row against at most 804 used bytes read and 256
-// written).
-// Design: one thread per row; a step or the carry add whose bit is clear is
-// skipped (the JAX kernel computes and discards it; the stored row is the
-// same), and the stored row has its 24 padding words zero.
-__global__ void __launch_bounds__(128)
+// Bound on the H100: operations (up to two madds and one full add, 7 and 9
+// products of 380 multiply-adds, per row against at most 804 used bytes
+// read and 256 written: 0.121 ms at the quarter store's 2^20 call).
+// Design: one thread per row, in the 26-bit digits of csrc/field26.cuh from
+// the row loads to the store: madd26 and full_add26 (csrc/ec26.cuh),
+// inlined, no call and no stack frame.  The pair rows' cached form is read
+// with load_cached26; a step that restarts takes the identity word by word
+// (ptd_select).  A step or the carry add whose bit is clear is skipped (the
+// JAX kernel computes and discards it; the stored row is the same), and
+// the steps are one loop body, so a warp whose lanes take different steps
+// runs one madd's code twice at most.  The warp writes its 32 rows whole
+// through shared memory (row_store), the 24 padding words zero.
+__global__ void __launch_bounds__(ROW_THREADS)
 extract_reconstruct_kernel(const uint32_t* __restrict__ base, const uint32_t* __restrict__ pair,
                            const int32_t* __restrict__ bits, const uint32_t* __restrict__ carry,
                            uint32_t* __restrict__ out, long long n, long long twr) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ __align__(16) uint32_t slots[ROW_THREADS * ROW_SLOT];
+  const long long warp0 = row_warp0();
+  if (warp0 >= n) return;
+  const long long i = row_of(warp0, n);
   const int b = bits[i];
-  const Pt ident = pt_identity();
-  Pt v = pt_load(base + i * MSM_TW);
+  PtD v = ptd_load_packed(base + i * MSM_TW);
   const uint32_t* rows = pair + i * 2 * twr;
 #pragma unroll 1
   for (int s = 0; s < 2; ++s) {
     if (b & (1 << s)) {
-      Fe d2, s2, td2;
-      load_cached(rows + s * twr, d2, s2, td2);
-      v = madd(pt_select((b & (4 << s)) != 0, v, ident), d2, s2, td2);
+      Fd d2, s2, td2;
+      load_cached26(rows + s * twr, d2, s2, td2);
+      v = madd26(ptd_select((b & (4 << s)) != 0, v, ptd_identity()), d2, s2, td2);
     }
   }
-  if (b & 16) v = full_add(v, pt_load(carry + i * MSM_TW));
-  pt_store(out + i * MSM_TW, v);
+  if (b & 16) v = full_add26(v, ptd_load_packed(carry + i * MSM_TW));
+  row_store(v, slots, out, warp0, n);
 }
 
 }  // namespace msm
@@ -208,8 +258,8 @@ extract_reconstruct_kernel(const uint32_t* __restrict__ base, const uint32_t* __
 extern "C" int msm_masked_add_rows(const void* a, const void* b, const void* mask, void* out,
                                    long long n, void* stream) {
   if (n > 0) {
-    const long long blocks = (n + msm::MASKED_ADD_THREADS - 1) / msm::MASKED_ADD_THREADS;
-    msm::masked_add_kernel<<<blocks, msm::MASKED_ADD_THREADS, 0, (cudaStream_t)stream>>>(
+    const long long blocks = (n + msm::ROW_THREADS - 1) / msm::ROW_THREADS;
+    msm::masked_add_kernel<<<blocks, msm::ROW_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (const int32_t*)mask, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
@@ -244,9 +294,8 @@ extern "C" int msm_extract_reconstruct_rows(const void* base, const void* pair, 
                                             const void* carry, void* out, long long n,
                                             long long twr, void* stream) {
   if (n > 0) {
-    const int threads = 128;
-    const long long blocks = (n + threads - 1) / threads;
-    msm::extract_reconstruct_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const long long blocks = (n + msm::ROW_THREADS - 1) / msm::ROW_THREADS;
+    msm::extract_reconstruct_kernel<<<blocks, msm::ROW_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)base, (const uint32_t*)pair, (const int32_t*)bits,
         (const uint32_t*)carry, (uint32_t*)out, n, twr);
   }
@@ -257,9 +306,8 @@ extern "C" int msm_extract_reconstruct_rows(const void* base, const void* pair, 
 extern "C" int msm_double_rows(const void* in, void* out, long long n, long long times,
                                void* stream) {
   if (n > 0) {
-    const int threads = 128;
-    const long long blocks = (n + threads - 1) / threads;
-    msm::double_rows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const long long blocks = (n + msm::ROW_THREADS - 1) / msm::ROW_THREADS;
+    msm::double_rows_kernel<<<blocks, msm::ROW_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)in, (uint32_t*)out, n, (int)times);
   }
   return (int)cudaGetLastError();

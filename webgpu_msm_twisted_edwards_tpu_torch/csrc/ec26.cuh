@@ -1,16 +1,19 @@
 // Extended twisted Edwards point arithmetic in the 26-bit digits of
 // csrc/field26.cuh: the scans (csrc/scan.cuh), the carry scan
 // (csrc/scan.cu), both BPR stages and the Horner fold (csrc/bpr.cu), the
-// masked add and the per-window reduce (csrc/ec.cu); its warp-staged row
-// store also serves the normalization (csrc/precompute.cu).
+// masked add, the per-window reduce, the quarter-store extraction (madd26
+// and full_add26) and the repeated doubling (pt_double26) in csrc/ec.cu;
+// its warp-staged row store also serves the normalization
+// (csrc/precompute.cu).
 //
-// madd26, full_add26, full_add26_x4 and pt_double26_x4 repeat ec.cuh's
-// madd, full_add and pt_double (ec.py::madd, ::full_add, ::double)
-// operation for operation, in the same order, on digits:
-// field26.cuh says why each digit operation gives the 13-bit one's residue,
-// so on normalized inputs these formulas give ec.cuh's packed rows bit for
-// bit.  Unlike ec.cuh's formulas, which cicc (CUDA 12.8) cannot inline into
-// a loop kernel, these are inlined: no call and no stack frame.
+// madd26, full_add26, full_add26_x4, pt_double26 and pt_double26_x4 repeat
+// the plain versions' madd, full_add and double (ops/kernels/ec.py, the JAX
+// package's ec.py::madd, ::full_add, ::double) operation for operation, in
+// the same order, on digits: field26.cuh says why each digit operation
+// gives the 13-bit one's residue, so on normalized inputs these formulas
+// give the plain versions' packed rows bit for bit.  Unlike the 13-bit
+// formulas of ec.cuh, which cicc (CUDA 12.8) cannot inline into a loop
+// kernel, these are inlined: no call and no stack frame.
 #pragma once
 
 #include "field26.cuh"
@@ -45,9 +48,8 @@ __device__ __forceinline__ PtD ptd_identity() {
   return p;
 }
 
-// ec.cuh::madd (ec.py::madd) in 26-bit digits, the same operations in the
-// same order: p1 + a table point in cached form (d2 = y2-x2, s2 = y2+x2,
-// td2 = 2*d*t2).
+// ec.py::madd in 26-bit digits, the same operations in the same order:
+// p1 + a table point in cached form (d2 = y2-x2, s2 = y2+x2, td2 = 2*d*t2).
 __device__ __forceinline__ PtD madd26(const PtD& p1, const Fd& d2, const Fd& s2, const Fd& td2) {
   const Fd d1 = fd_sub_lazy(p1.y, p1.x);
   const Fd s1 = fd_add_lazy(p1.x, p1.y);
@@ -67,9 +69,9 @@ __device__ __forceinline__ PtD madd26(const PtD& p1, const Fd& d2, const Fd& s2,
   return r;
 }
 
-// ec.cuh::full_add (ec.py::full_add), the unified add of two arbitrary
-// points with the product by d (cc1) lazy, on one thread: full_add26_x4's
-// operations in its order, its 9 products one after the other.
+// ec.py::full_add, the unified add of two arbitrary points with the product
+// by d (cc1) lazy, on one thread: full_add26_x4's operations in its order,
+// its 9 products one after the other.
 __device__ __forceinline__ PtD full_add26(const PtD& p1, const PtD& p2) {
   const Fd d1 = fd_sub_lazy(p1.y, p1.x);
   const Fd d2 = fd_sub_lazy(p2.y, p2.x);
@@ -125,9 +127,9 @@ __device__ __forceinline__ Fd fd_pick4(int q, const Fd& a, const Fd& b, const Fd
   return r;
 }
 
-// ec.cuh::full_add (ec.py::full_add), the unified add of two arbitrary
-// points with the product by d (cc1) lazy, on a group of four neighbouring
-// lanes that hold the same p1 and p2.  Its 9 products are two sets of four
+// ec.py::full_add, the unified add of two arbitrary points with the product
+// by d (cc1) lazy, on a group of four neighbouring lanes that hold the same
+// p1 and p2.  Its 9 products are two sets of four
 // independent ones and cc1 between them: lane q computes product q of each
 // set, the group exchanges the four results by shuffles, and every lane
 // returns the sum.  Each product takes the operands it takes in full_add,
@@ -156,12 +158,36 @@ __device__ __forceinline__ PtD full_add26_x4(const PtD& p1, const PtD& p2, int q
   return ptd_shfl4(r);
 }
 
-// ec.cuh::pt_double (ec.py::double, dbl-2008-hwcd with a = -1) on a group
-// of four neighbouring lanes that hold the same p1, as full_add26_x4 does
-// the add.  Its 8 products are two sets of four independent ones: lane q
-// computes product q of each set and the group exchanges the results by
-// shuffles.  The lazy operations are pt_double's, in its order, so the
-// bits are the same; the dependent chain is 2 products long, not 8.
+// ec.py::double (dbl-2008-hwcd with a = -1) on one thread:
+// pt_double26_x4's operations in its order, its 8 products one after the
+// other.
+__device__ __forceinline__ PtD pt_double26(const PtD& p1) {
+  const Fd xy = fd_add_lazy(p1.x, p1.y);
+  const Fd a = mont26(p1.x, p1.x);
+  const Fd b = mont26(p1.y, p1.y);
+  const Fd zz = mont26(p1.z, p1.z);
+  const Fd e_in = mont26(xy, xy);
+  const Fd cc = fd_add_lazy(zz, zz);
+  const Fd s_ab = fd_add_lazy(a, b);
+  const Fd d = fd_neg_lazy(a);
+  const Fd e = fd_sub_lazy(e_in, s_ab);
+  const Fd h = fd_sub_lazy(d, b);
+  const Fd g = fd_add_lazy(d, b);
+  const Fd f = fd_sub_lazy(g, cc);
+  PtD r;
+  r.x = mont26(e, f);
+  r.y = mont26(g, h);
+  r.t = mont26(e, h);
+  r.z = mont26(f, g);
+  return r;
+}
+
+// ec.py::double (dbl-2008-hwcd with a = -1) on a group of four neighbouring
+// lanes that hold the same p1, as full_add26_x4 does the add.  Its 8
+// products are two sets of four independent ones: lane q computes product q
+// of each set and the group exchanges the results by shuffles.  The lazy
+// operations are double's, in its order, so the bits are the same; the
+// dependent chain is 2 products long, not 8.
 __device__ __forceinline__ PtD pt_double26_x4(const PtD& p1, int q) {
   const Fd xy = fd_add_lazy(p1.x, p1.y);
   // a = x*x, b = y*y, zz = z*z, e_in = xy*xy.
@@ -223,6 +249,24 @@ __device__ __forceinline__ PtD ptd_load_packed(const uint32_t* row) {
   uint32_t w[4 * MSM_LP];
   load_packed_words(row, w);
   return ptd_from_packed(w);
+}
+
+// The cached form (y-x, y+x, 2*d*t) of one table row, its first 3*MSM_L
+// words (one limb a word), read with 16-byte loads, as digits.
+__device__ __forceinline__ void load_cached26(const uint32_t* row, Fd& d2, Fd& s2, Fd& td2) {
+  uint32_t w[3 * MSM_L];
+  const uint4* r4 = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int i = 0; i < 3 * MSM_L / 4; ++i) {
+    const uint4 q = r4[i];
+    w[4 * i] = q.x;
+    w[4 * i + 1] = q.y;
+    w[4 * i + 2] = q.z;
+    w[4 * i + 3] = q.w;
+  }
+  d2 = fd_from_limbs(w);
+  s2 = fd_from_limbs(w + MSM_L);
+  td2 = fd_from_limbs(w + 2 * MSM_L);
 }
 
 // The 40 packed words of one point (ec.py::pt_pack) into w.

@@ -31,10 +31,6 @@ namespace msm {
 __constant__ uint32_t C_P[MSM_L] = {
     0x0001, 0x0000, 0x0000, 0x0300, 0x10a1, 0x0000, 0x0000, 0x1fda, 0x0a76, 0x0acd,
     0x0c00, 0x186f, 0x11e5, 0x1a26, 0x1982, 0x14aa, 0x1a2c, 0x0af4, 0x0ad9, 0x0025};
-// d*R mod p
-__constant__ uint32_t C_D[MSM_L] = {
-    0x02f8, 0x1faf, 0x1fff, 0x07ff, 0x0b3f, 0x1e92, 0x1fd5, 0x0f2f, 0x1d4a, 0x01e9,
-    0x1609, 0x1e89, 0x06de, 0x18c6, 0x1629, 0x08a9, 0x0a80, 0x1ead, 0x1dc5, 0x0014};
 // R mod p
 __constant__ uint32_t C_R[MSM_L] = {
     0x1f25, 0x1fff, 0x1fff, 0x0eff, 0x0630, 0x1f8e, 0x1fff, 0x0081, 0x0c34, 0x0259,
@@ -151,18 +147,6 @@ __device__ __forceinline__ Fe fr_neg_lazy(const Fe& b) {
 #pragma unroll
   for (int i = 0; i < MSM_L; ++i) r.v[i] = C_Q4[i] - b.v[i];
   carry_sweep(r);
-  return r;
-}
-
-// common.py::unpack2 — 10 packed words (limb 2i in bits 0..15, limb 2i+1 in
-// bits 16..31) -> 20 limbs.
-__device__ __forceinline__ Fe unpack2(const uint32_t* w) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < MSM_LP; ++i) {
-    r.v[2 * i] = w[i] & 0xFFFFu;
-    r.v[2 * i + 1] = w[i] >> 16;
-  }
   return r;
 }
 

@@ -68,24 +68,6 @@ enum ScanMask { MASK_KEYS = 0, MASK_SAMES = 1, MASK_SIGNED = 2 };
 constexpr int SCAN_THREADS = 64;
 constexpr int SCAN_MIN_BLOCKS = 8;
 
-// The cached form (y-x, y+x, 2*d*t) of one table row, its first 3*MSM_L
-// words (one limb a word), read with 16-byte loads, as digits.
-__device__ __forceinline__ void load_cached26(const uint32_t* row, Fd& d2, Fd& s2, Fd& td2) {
-  uint32_t w[3 * MSM_L];
-  const uint4* r4 = reinterpret_cast<const uint4*>(row);
-#pragma unroll
-  for (int i = 0; i < 3 * MSM_L / 4; ++i) {
-    const uint4 q = r4[i];
-    w[4 * i] = q.x;
-    w[4 * i + 1] = q.y;
-    w[4 * i + 2] = q.z;
-    w[4 * i + 3] = q.w;
-  }
-  d2 = fd_from_limbs(w);
-  s2 = fd_from_limbs(w + MSM_L);
-  td2 = fd_from_limbs(w + 2 * MSM_L);
-}
-
 template <int ROWS, int MASK, int STORE>
 __global__ void __launch_bounds__(SCAN_THREADS, SCAN_MIN_BLOCKS)
 scan_kernel(const uint32_t* __restrict__ rows, const int32_t* __restrict__ pidx, long long psj,
