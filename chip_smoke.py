@@ -59,7 +59,21 @@ Phases (any failure raises and exits non-zero):
    shape, its launch counts from zero, then each of its kernels replayed on
    the inputs of its largest call as in 4, on the part of the output that
    it writes (the ablations that store one pair, copy-only's first step,
-   the partition's full tiles).
+   the partition's full tiles);
+9. the small-input path: compute_msm at each of SMALL_CASES (511 and 4095
+   points at the sizing rule's c=4, 4096 points at c=6) on the benchmark
+   inputs, launch counts from zero (no kernel may launch), one warm and
+   SMALL_RUNS timed runs, each result checked against the oracle; and
+   use_kernels=False at 4096 points, c=8, equal to the kernels' answer;
+10. compute_msm_batch at 2^20 over BATCH_K scalar vectors on the card (the
+   first is phase 3's): launch counts from zero (one table conversion,
+   BATCH_K scans a window group), each result equal to compute_msm on its
+   vector, the median of BATCH_RUNS timed runs beside BATCH_K times phase
+   3's one-shot median, then once more forced into two point blocks (two
+   conversions), equal;
+11. validate_pipeline at each of VALIDATE_CASES (1024 points at c=8, and at
+   c=4, whose bucket counts are a binary search), every stage "ok", with
+   its seconds.
 
 It prints, on lines of their own before the last, the card line from
 nvidia-smi and one JSON object {"kernels": [...]}, and as its last line
@@ -927,6 +941,155 @@ def probes_path() -> dict:
     return {"probes": out, "kernels": kernels}
 
 
+#: Phase 9: (n, chunk_size) of the small-input path; None takes the sizing
+#: rule (c = 4 below 4096 points).
+SMALL_CASES = ((511, None), (4095, None), (4096, 6))
+SMALL_RUNS = 3
+
+
+def small_path() -> dict:
+    """Drive compute_msm on the small-input path: no kernel may launch, each
+    result equals the oracle; then use_kernels=False at 4096 points and c=8
+    against the kernels' answer."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+
+    out = {}
+    for n, c in SMALL_CASES:
+        pts, sc, coords, scalars = card_inputs(n)
+        _build.reset_launch_counts()
+        t0 = time.time()
+        res = compute_msm(coords, scalars, chunk_size=c)
+        first_ms = (time.time() - t0) * 1e3
+        launched = {k: v for k, v in _build.launches.items() if v}
+        if launched:
+            raise AssertionError(f"small path n={n}, c={c}: kernels launched {launched}")
+        times = []
+        for _ in range(SMALL_RUNS):
+            t0 = time.time()
+            again = compute_msm(coords, scalars, chunk_size=c)
+            times.append((time.time() - t0) * 1e3)
+            if again != res:
+                raise AssertionError(f"small path n={n}, c={c}: runs disagree")
+        if (res["x"], res["y"]) != oracle.msm_parallel(pts, sc, c=16):
+            raise AssertionError(f"small path n={n}, c={c}: got {res}, not the oracle's")
+        median = statistics.median(times)
+        out[f"{n}, c={c or 4}"] = {"first_ms": first_ms, "runs_ms": times, "median_ms": median,
+                                   "oracle": "MATCH"}
+        log(f"small path n={n}, c={c or 4}: median {median:.1f} ms of {SMALL_RUNS} "
+            f"{[round(t, 1) for t in times]}, first run {first_ms:.1f} ms, no kernel launched, "
+            f"oracle MATCH")
+    _, _, coords, scalars = card_inputs(4096)
+    want = compute_msm(coords, scalars, chunk_size=8)
+    _build.reset_launch_counts()
+    t0 = time.time()
+    forced = compute_msm(coords, scalars, chunk_size=8, use_kernels=False)
+    forced_ms = (time.time() - t0) * 1e3
+    if forced != want or any(_build.launches.values()):
+        raise AssertionError(f"use_kernels=False at 4096, c=8: {forced} against the kernels' "
+                             f"{want}; launches {dict(_build.launches)}")
+    out["4096, c=8, use_kernels=False"] = {"ms": forced_ms, "equals_kernel_path": True}
+    log(f"small path forced at 4096, c=8: {forced_ms:.1f} ms, equal to the kernels' answer")
+    return out
+
+
+#: Phase 10: scalar vectors of the batch (the first is phase 3's), their
+#: numpy seed, and its timed runs.
+BATCH_K = 4
+BATCH_SEED = 43
+BATCH_RUNS = 3
+
+
+def batch_path(n: int, want: dict, one_shot_ms: float) -> dict:
+    """Drive compute_msm_batch over BATCH_K vectors at n points: one table
+    conversion and BATCH_K scans a window group, each result equal to
+    compute_msm on its vector (the first to phase 3's answer); timed against
+    BATCH_K one-shot calls; then forced into two point blocks."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm, compute_msm_batch
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+    from webgpu_msm_twisted_edwards_tpu_torch.utils.interop import from_numpy_u32
+    from webgpu_msm_twisted_edwards_tpu_torch.utils.params import tpu_msm_config
+
+    _, _, coords, scalars = card_inputs(n)
+    rng = np.random.default_rng(BATCH_SEED)
+    vectors = [scalars]
+    for _ in range(BATCH_K - 1):
+        sc = rng.integers(0, 1 << 62, size=(n, 4), dtype=np.uint64)
+        sc[:, 3] &= (1 << 58) - 1
+        vectors.append(from_numpy_u32(sc.view(np.uint32).reshape(n, 8), "cuda"))
+    cfg = tpu_msm_config(n)
+    groups = cfg.num_windows // MP.default_window_group(n, cfg.num_windows, coords.device)
+
+    _build.reset_launch_counts()
+    t0 = time.time()
+    res = compute_msm_batch(coords, vectors)
+    first_ms = (time.time() - t0) * 1e3
+    launches = dict(_build.launches)
+    if launches.get("convert") != 1 or launches.get("scan_fused") != BATCH_K * groups:
+        raise AssertionError(f"batch launches {launches}, {groups} window groups")
+    if res[0] != want:
+        raise AssertionError(f"batch: got {res[0]}, compute_msm {want}")
+    for i, v in enumerate(vectors[1:], 1):
+        if compute_msm(coords, v) != res[i]:
+            raise AssertionError(f"batch: vector {i} differs from compute_msm")
+    times = []
+    for _ in range(BATCH_RUNS):
+        t0 = time.time()
+        again = compute_msm_batch(coords, vectors)
+        times.append((time.time() - t0) * 1e3)
+        if again != res:
+            raise AssertionError("batch: runs disagree")
+
+    # Two point blocks, as a smaller card would stream them: the table is
+    # converted once a block (counted by a spy on that stage).
+    block_size, stage, tables = MP.default_block_size, MP._stage_table, []
+    MP.default_block_size = lambda n, device=None: n // 2
+    MP._stage_table = lambda coords: (tables.append(coords.shape[0]), stage(coords))[1]
+    _build.reset_launch_counts()
+    try:
+        t0 = time.time()
+        res2 = compute_msm_batch(coords, vectors)
+        two_block_ms = (time.time() - t0) * 1e3
+    finally:
+        MP.default_block_size, MP._stage_table = block_size, stage
+    launches2 = dict(_build.launches)
+    if res2 != res or tables != [n // 2, n // 2] or launches2.get("convert") != 2:
+        raise AssertionError(f"batch, two blocks: {tables} tables, launches {launches2}, "
+                             f"{'equal' if res2 == res else 'different results'}")
+    median = statistics.median(times)
+    return {"n": n, "k": BATCH_K, "launches": launches, "first_ms": first_ms,
+            "runs_ms": times, "median_ms": median, "one_shot_median_ms": one_shot_ms,
+            "k_one_shot_ms": BATCH_K * one_shot_ms, "two_block_ms": two_block_ms,
+            "two_block_launches": launches2, "equals_compute_msm": True}
+
+
+#: Phase 11: (n, chunk_size) of validate_pipeline.
+VALIDATE_CASES = ((1024, 8), (1024, 4))
+
+
+def validate_path() -> dict:
+    """validate_pipeline on the card: every stage must say "ok"."""
+    from webgpu_msm_twisted_edwards_tpu_torch import validate_pipeline
+    from webgpu_msm_twisted_edwards_tpu_torch.utils.limbs import u32_words_to_ints
+
+    out = {}
+    for n, c in VALIDATE_CASES:
+        pts, sc, _, _ = card_inputs(n)
+        words = pts.view(np.uint32).reshape(n, 2, 8)
+        points = list(zip(u32_words_to_ints(words[:, 0]), u32_words_to_ints(words[:, 1])))
+        scalars = u32_words_to_ints(sc.view(np.uint32).reshape(n, 8))
+        t0 = time.time()
+        status = validate_pipeline(points, scalars, chunk_size=c)
+        seconds = time.time() - t0
+        if set(status.values()) != {"ok"} or len(status) != 4:
+            raise AssertionError(f"validate_pipeline n={n}, c={c}: {status}")
+        out[f"{n}, c={c}"] = {"status": status, "s": seconds}
+        log(f"validate_pipeline n={n}, c={c}: {status}, {seconds:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1020,11 +1183,31 @@ def main() -> int:
     pr["phase_s"] = time.time() - t_pr
     log(f"probes phase with its kernel replay: {pr['phase_s']:.1f} s")
 
+    t_sp = time.time()
+    sp = small_path()
+    sp["phase_s"] = time.time() - t_sp
+    log(f"small-input path phase: {sp['phase_s']:.1f} s")
+
+    t_bt = time.time()
+    bt = batch_path(1 << 20, e2e["2^20"]["result"], e2e["2^20"]["median_ms"])
+    bt["phase_s"] = time.time() - t_bt
+    log(f"compute_msm_batch 2^20, k={bt['k']}: median {bt['median_ms']:.2f} ms of "
+        f"{BATCH_RUNS} {[round(t, 2) for t in bt['runs_ms']]} against {bt['k']} x the "
+        f"one-shot median {bt['k_one_shot_ms']:.2f} ms, first run {bt['first_ms']:.1f} ms, "
+        f"launches {bt['launches']}; two blocks {bt['two_block_ms']:.1f} ms, equal; phase "
+        f"{bt['phase_s']:.1f} s")
+
+    t_vp = time.time()
+    vp = validate_path()
+    vp["phase_s"] = time.time() - t_vp
+    log(f"validator phase: {vp['phase_s']:.1f} s")
+
     log(json.dumps({"e2e": {k: {"median_ms": v["median_ms"], "runs_ms": v["runs_ms"],
                                 "first_ms": v["first_ms"], "launches": v["launches"],
                                 "masked_add_bound_ms": v["masked_add_bound_ms"],
                                 "oracle": v["oracle"]} for k, v in e2e.items()},
                     "fixed_base_2^20": fb, "configs_2^20": cf, "probes": pr["probes"],
+                    "small_path": sp, "batch_2^20": bt, "validate": vp,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(card)

@@ -279,6 +279,63 @@ def test_compute_msm_cuda_matches_cpu(dev):
     assert (got["x"], got["y"]) == oracle.msm(pts, sc, c=16)
 
 
+def _oracle_inputs(n: int, seed: int):
+    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+
+    pts = oracle.gen_points(n, seed=seed)
+    rng = np.random.default_rng(seed)
+    sc = rng.integers(0, 1 << 62, size=(n, 4), dtype=np.uint64)
+    sc[:, 3] &= (1 << 58) - 1
+    return pts, sc
+
+
+def test_small_path_cuda_matches_oracle(dev):
+    """n = 511 takes the small-input path (c = 4) on the card: no kernel
+    launches, the oracle's answer."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm
+    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+
+    n = 511
+    pts, sc = _oracle_inputs(n, 7)
+    _build.reset_launch_counts()
+    got = compute_msm(pts.view(np.uint32).reshape(n, 2, 8), sc.view(np.uint32).reshape(n, 8))
+    assert not any(_build.launches.values())
+    assert (got["x"], got["y"]) == oracle.msm(pts, sc, c=16)
+
+
+def test_compute_msm_batch_cuda_matches_one_shot(dev):
+    """k = 3 at 2^16 on the card: one table conversion, each result equal to
+    compute_msm on its vector."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm, compute_msm_batch
+
+    n = 1 << 16
+    pts, sc = _oracle_inputs(n, 8)
+    coords = from_numpy_u32(pts.view(np.uint32).reshape(n, 2, 8), dev)
+    words = [sc.view(np.uint32).reshape(n, 8),
+             # Random words: most scalars are >= the subgroup order.
+             np.random.default_rng(9).integers(0, 1 << 32, size=(n, 8),
+                                               dtype=np.uint64).astype(np.uint32),
+             np.zeros((n, 8), np.uint32)]
+    vectors = [from_numpy_u32(w, dev) for w in words]
+    _build.reset_launch_counts()
+    got = compute_msm_batch(coords, vectors)
+    assert _build.launches["convert"] == 1
+    assert got == [compute_msm(coords, v) for v in vectors]
+
+
+def test_validate_pipeline_cuda(dev):
+    from webgpu_msm_twisted_edwards_tpu_torch import validate_pipeline
+    from webgpu_msm_twisted_edwards_tpu_torch.utils.limbs import u32_words_to_ints
+
+    n = 1024
+    pts, sc = _oracle_inputs(n, 11)
+    words = pts.view(np.uint32).reshape(n, 2, 8)
+    points = list(zip(u32_words_to_ints(words[:, 0]), u32_words_to_ints(words[:, 1])))
+    scalars = u32_words_to_ints(sc.view(np.uint32).reshape(n, 8))
+    for c in (8, 4):
+        assert set(validate_pipeline(points, scalars, chunk_size=c).values()) == {"ok"}
+
+
 @pytest.mark.parametrize("n", CONVERT_NS)
 def test_convert_pair(dev, n):
     coords = _coords(np.random.default_rng(10), n, dev)

@@ -210,11 +210,15 @@ def test_compute_msm_duplicate_points_and_oversized_scalars():
 
 @pytest.mark.parametrize("n,chunk_size", [(600, None), (256, 8), (4096, 6)])
 def test_compute_msm_outside_the_bucket_pipeline_raises(n, chunk_size):
-    """Below 4096 points the sizing rule picks c = 4; the port runs only the
-    bucket pipeline (n >= 512, c >= 8) and points to ROADMAP A.8."""
+    """Inputs outside the bucket pipeline (n < 512 or c < 8; below 4096
+    points the sizing rule picks c = 4) take the small-input path, which
+    raises nothing and gives the python-int sum.  Random scalars: the
+    layered accumulation runs as many rounds as the fullest bucket has
+    entries."""
     points = _points(8, 14) * (n // 8)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        compute_msm(points, [1] * n, chunk_size=chunk_size, device="cpu")
+    scalars = _scalars(n, 14)
+    got = compute_msm(points, scalars, chunk_size=chunk_size, device="cpu")
+    assert (got["x"], got["y"]) == _reference_msm(points, scalars)
 
 
 def test_compute_msm_without_a_card_raises(monkeypatch):

@@ -1,12 +1,17 @@
-"""The MSM entry points: compute_msm(points, scalars) -> {x, y}, and the
-fixed-base trio precompute_msm_base / compute_msm_precomputed /
+"""The MSM entry points: compute_msm(points, scalars) -> {x, y}, the batch
+compute_msm_batch over one point set, and the fixed-base trio
+precompute_msm_base / compute_msm_precomputed /
 compute_msm_batch_precomputed.
 
-Port of the Pallas path of the JAX package's models/cuzk.py: inputs are
-packed into u32 words, scalars reduced below the subgroup order, the point
-count padded to a multiple of 4096 (zero scalars, copies of point 0), and
-the pipeline (ops/msm_pipeline.py, or ops/precompute.py over a precomputed
-base) returns one packed projective point that the host decodes.
+Port of the JAX package's models/cuzk.py.  Inputs are packed into u32
+words and scalars reduced below the subgroup order.  Two paths:
+- the bucket pipeline (n >= 512 and c >= 8): the point count padded to a
+  multiple of 4096 (zero scalars, copies of point 0), and the kernels'
+  pipeline (ops/msm_pipeline.py, or ops/precompute.py over a precomputed
+  base) returns one packed projective point that the host decodes;
+- the small-input path, every other input: msm_window_sums_device in plain
+  torch ops (the JAX package's pure-XLA pipeline) returns the window sums,
+  which the host folds by Horner's rule.
 """
 
 from __future__ import annotations
@@ -17,6 +22,12 @@ import numpy as np
 import torch
 
 from ..cpu.curve import ExtPoint
+from ..cpu.mirrors import horner
+from ..ops import bpr as BPR
+from ..ops import buckets as B
+from ..ops import convert as CV
+from ..ops import curve as C
+from ..ops import field as F
 from ..ops import msm_pipeline as MP
 from ..ops import precompute as PRE
 from ..ops.kernels import _build
@@ -57,13 +68,17 @@ def _pack_points(points, device: torch.device) -> torch.Tensor:
     return coords
 
 
-def _pack_scalars(scalars, device: torch.device) -> torch.Tensor:
+def _pack_scalar_words(scalars, device: torch.device) -> torch.Tensor:
     sc = _as_u32_tensor(scalars, device)
     if sc is None:
         sc = from_numpy_u32(L.ints_to_u32_words(list(scalars)), device)
     if sc.dim() != 2 or sc.shape[1] != 8:
         raise ValueError(f"scalars must be [n, 8] words, got {tuple(sc.shape)}")
-    return reduce_scalars_mod_order(sc)
+    return sc
+
+
+def _pack_scalars(scalars, device: torch.device) -> torch.Tensor:
+    return reduce_scalars_mod_order(_pack_scalar_words(scalars, device))
 
 
 def prepare_inputs(points, scalars, device=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -126,12 +141,54 @@ def packed_rows_to_extpoints(rows: np.ndarray) -> list[ExtPoint]:
     return out
 
 
+def msm_window_sums_device(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig,
+                           bpr_chunks: int = 256) -> C.PointXYTZ:
+    """The small-input path on the inputs' device: [n, 2, 8] and [n, 8]
+    int32 words -> [W] window sums, Montgomery-form limbs.  Conversion,
+    signed digits, sorted buckets (ops/buckets.py), their layered
+    accumulation and the chunked reduction (ops/bpr.py) in plain torch ops;
+    no kernel is launched."""
+    xm, ym, tm = CV.points_to_mont_limbs(coords)
+    points = C.PointXYTZ(xm, ym, tm, F.r_limbs(coords.device).expand_as(xm))
+    digits = CV.decompose_scalars_signed(scalars, cfg)
+    buckets = B.accumulate_buckets(points, B.sort_buckets(digits, cfg))
+    return BPR.reduce_buckets(buckets, num_chunks=bpr_chunks)
+
+
+def window_sums_to_extpoints(sums: C.PointXYTZ) -> list[ExtPoint]:
+    """[W] Montgomery-limb window sums -> python-int extended points."""
+    arrs = [u.cpu().numpy() for u in sums]
+    return [ExtPoint(*(PARAMS.from_mont(L.words_le_to_int(a[i], PARAMS.word_size))
+                       for a in arrs)) for i in range(arrs[0].shape[0])]
+
+
+def _small_path_msm(coords: torch.Tensor, sc: torch.Tensor, cfg: MsmConfig,
+                    bpr_chunks: int = 256) -> dict[str, int]:
+    sums = msm_window_sums_device(coords, sc, cfg, bpr_chunks)
+    x, y = horner(window_sums_to_extpoints(sums), cfg.chunk_size).to_affine()
+    return {"x": x, "y": y}
+
+
+def _config(n: int, chunk_size: int | None) -> MsmConfig:
+    """c = chunk_size, else 13 below 2^19 points and 16 from 2^19 (n >=
+    4096), else 4."""
+    if chunk_size is not None:
+        return MsmConfig(chunk_size=chunk_size)
+    return tpu_msm_config(n) if n >= 4096 else default_msm_config(n)
+
+
+def _pad_target(n: int) -> int:
+    return max(4096, -(-n // 4096) * 4096)
+
+
 def compute_msm(
     points: Sequence[tuple[int, int]] | np.ndarray | torch.Tensor,
     scalars: Sequence[int] | np.ndarray | torch.Tensor,
     log_result: bool = False,
     force_recompile: bool = False,
     chunk_size: int | None = None,
+    bpr_chunks: int = 256,
+    use_kernels: bool | None = None,
     device=None,
 ) -> dict[str, int]:
     """Q = sum_i k_i * P_i: the affine result {x, y} as python ints.
@@ -140,31 +197,64 @@ def compute_msm(
     kernels' plain PyTorch versions.  Points are assumed to lie in the
     prime-order subgroup; scalars >= its order are reduced mod the order.
     The window size is c = chunk_size, else 13 below 2^19 points and 16 from
-    2^19 (n >= 4096), else 4.  The bucket pipeline needs n >= 512 and c >= 8;
-    other inputs raise NotImplementedError (the small-input path is ROADMAP
-    A.8).  force_recompile deletes the built kernels, so the next launch
-    rebuilds every one from its source."""
+    2^19 (n >= 4096), else 4.  use_kernels=None takes the bucket pipeline
+    on the kernels for n >= 512 and c >= 8 and the small-input path
+    (msm_window_sums_device, bpr_chunks chunks a window in its reduction)
+    for every other input; False takes the small-input path at any n, True
+    the bucket pipeline (c >= 8).  force_recompile deletes the built
+    kernels, so the next launch rebuilds every one from its source."""
     dev = resolve_device(device)
     if force_recompile:
         _build.clear()
     coords, sc = prepare_inputs(points, scalars, dev)
     n = coords.shape[0]
-    if chunk_size is not None:
-        cfg = MsmConfig(chunk_size=chunk_size)
+    cfg = _config(n, chunk_size)
+    if use_kernels is None:
+        use_kernels = n >= 512 and cfg.chunk_size >= 8
+    if not use_kernels:
+        result = _small_path_msm(coords, sc, cfg, bpr_chunks)
+    elif cfg.chunk_size < 8:
+        raise ValueError(f"c={cfg.chunk_size}: the bucket pipeline needs c >= 8")
     else:
-        cfg = tpu_msm_config(n) if n >= 4096 else default_msm_config(n)
-    if n < 512 or cfg.chunk_size < 8:
-        raise NotImplementedError(
-            f"n={n}, c={cfg.chunk_size}: the port runs only the bucket pipeline "
-            "(n >= 512 and c >= 8); the small-input path is ROADMAP A.8")
-    target = max(4096, -(-n // 4096) * 4096)
-    if target != n:
-        coords = _pad_points(coords, target - n)
-        sc = _pad_zero_scalars(sc, target - n)
-    result = _affine_result(MP.msm_window_sums_blocked(coords, sc, cfg, fold=True))
+        target = _pad_target(n)
+        if target != n:
+            coords = _pad_points(coords, target - n)
+            sc = _pad_zero_scalars(sc, target - n)
+        result = _affine_result(MP.msm_window_sums_blocked(coords, sc, cfg, fold=True))
     if log_result:
         print(result)
     return result
+
+
+def compute_msm_batch(points, scalars_list, chunk_size: int | None = None,
+                      device=None) -> list[dict[str, int]]:
+    """One MSM per scalar vector over one point set (a prover's many MSMs
+    over its SRS): element i equals compute_msm(points, scalars_list[i]).
+
+    One compare on the device guards all k vectors against scalars >= the
+    subgroup order (one host sync), the points are padded once, the table
+    is built once (once per point block), and the results are read back
+    after the last MSM is queued.  Inputs that compute_msm sends to the
+    small-input path run it once per vector.  Runs on the CUDA card unless
+    `device="cpu"` is given."""
+    dev = resolve_device(device)
+    coords = _pack_points(points, dev)
+    n = coords.shape[0]
+    packed = [_pack_scalar_words(sc, dev) for sc in scalars_list]
+    if any(sc.shape[0] != n for sc in packed):
+        raise ValueError(f"{n} points but scalar vectors of {[sc.shape[0] for sc in packed]}")
+    if not packed:
+        return []
+    scs = list(reduce_scalars_mod_order(torch.cat(packed)).split(n))
+    cfg = _config(n, chunk_size)
+    if n < 512 or cfg.chunk_size < 8:
+        return [_small_path_msm(coords, sc, cfg) for sc in scs]
+    target = _pad_target(n)
+    if target != n:
+        coords = _pad_points(coords, target - n)
+        scs = [_pad_zero_scalars(sc, target - n) for sc in scs]
+    rows_list = MP.msm_window_sums_batch(coords, scs, cfg, fold=True)
+    return [_affine_result(rows) for rows in rows_list]
 
 
 def _affine_result(rows: torch.Tensor) -> dict[str, int]:

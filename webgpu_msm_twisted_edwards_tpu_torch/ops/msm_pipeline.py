@@ -192,8 +192,6 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor, nb: in
                              f"or {2 * n} (doubled)")
     if fused and single:
         raise ValueError("fused=True needs the doubled table")
-    if nb % 128:
-        raise ValueError(f"nb={nb}: the pipeline needs c >= 8 (ROADMAP A.8)")
     dev = digits_g.device
     d = digits_g
     keys = torch.where(d == 0, nb, d.abs() - 1).to(torch.int32)      # [Wg, n]
@@ -206,8 +204,16 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor, nb: in
     idxs = torch.where(d < 0, idx + sbit, idx)
     keys_s, idxs_s = _sort_entries(keys, idxs)
 
-    counts = bucket_counts(keys, nb)                                  # [Wg, nb]
-    ends = torch.cumsum(counts, dim=1) - 1                            # int64
+    if nb % 128 == 0:
+        counts = bucket_counts(keys, nb)                              # [Wg, nb]
+        ends = torch.cumsum(counts, dim=1) - 1                        # int64
+    else:
+        # Windows of c < 8 bits, as the JAX package counts them: a binary
+        # search of the sorted keys.
+        queries = torch.arange(nb + 1, dtype=torch.int32, device=dev).expand(wg, -1)
+        offsets = torch.searchsorted(keys_s.contiguous(), queries.contiguous(), side="left")
+        counts = offsets[:, 1:] - offsets[:, :nb]
+        ends = offsets[:, 1:] - 1
 
     # Flatten window-major and pad with sentinel entries to a multiple of
     # 128 fragments (their scan values and carries are never extracted).
@@ -321,10 +327,12 @@ def default_window_group(n: int, num_windows: int, device=None) -> int:
     return max(d for d in range(1, num_windows + 1) if num_windows % d == 0 and d <= cap)
 
 
-def _stage_table_digits(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig):
-    table = build_prod_table(coords)
-    digits = decompose_scalars_signed(scalars, cfg)                   # [n, W]
-    return table, digits.T                                            # [W, n]
+def _stage_table(coords: torch.Tensor) -> torch.Tensor:
+    return build_prod_table(coords)
+
+
+def _stage_digits_only(scalars: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
+    return decompose_scalars_signed(scalars, cfg).T                   # [W, n]
 
 
 def _stage_group(table, digits_t, g: int, nb: int, wg: int) -> torch.Tensor:
@@ -348,24 +356,11 @@ def _stage_fold(rows: torch.Tensor, cbits: int) -> torch.Tensor:
 def msm_window_sums_staged(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig,
                            window_group: int = 0, fold: bool = False) -> torch.Tensor:
     """[n, 2, 8], [n, 8] int32 -> [W, TW] packed window sums, or with
-    fold=True the [1, TW] packed projective total.  Stages: table + digits,
-    then one bucket-sum pass per window group, then BPR (and the fold).
-    window_group=0 takes default_window_group."""
-    n = coords.shape[0]
-    if n % K:
-        raise ValueError(f"n={n} must be a multiple of the scan fragment size {K}")
-    w = cfg.num_windows
-    nb = cfg.num_buckets
-    if window_group == 0:
-        window_group = default_window_group(n, w, coords.device)
-    if w % window_group:
-        raise ValueError(f"window_group={window_group} does not divide {w} windows")
-    table, digits_t = _stage_table_digits(coords, scalars, cfg)
-    group_rows = [_stage_group(table, digits_t, g, nb, window_group)
-                  for g in range(w // window_group)]
-    del table
-    rows = _stage_bpr(group_rows, w)
-    return _stage_fold(rows, cfg.chunk_size) if fold else rows
+    fold=True the [1, TW] packed projective total, in one point block.
+    Stages: table + digits, then one bucket-sum pass per window group, then
+    BPR (and the fold).  window_group=0 takes default_window_group."""
+    return msm_window_sums_batch(coords, [scalars], cfg, window_group=window_group,
+                                 fold=fold, block=coords.shape[0])[0]
 
 
 def msm_window_sums(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig,
@@ -389,25 +384,46 @@ def default_block_size(n: int, device=None) -> int:
 def msm_window_sums_blocked(coords: torch.Tensor, scalars: torch.Tensor, cfg: MsmConfig,
                             block: int = 0, window_group: int = 0,
                             fold: bool = False) -> torch.Tensor:
-    """As :func:`msm_window_sums_staged`, streaming point blocks when the
-    table would not fit: window sums over disjoint point blocks add, so the
-    result equals the unblocked pipeline's.  block=0 takes
-    default_block_size."""
+    """One MSM through :func:`msm_window_sums_batch`: streaming point blocks
+    when the table would not fit, equal to the unblocked pipeline's result.
+    block=0 takes default_block_size."""
+    return msm_window_sums_batch(coords, [scalars], cfg, window_group=window_group,
+                                 fold=fold, block=block)[0]
+
+
+def msm_window_sums_batch(coords: torch.Tensor, scalars_list, cfg: MsmConfig,
+                          window_group: int = 0, fold: bool = False,
+                          block: int = 0) -> list[torch.Tensor]:
+    """Many MSMs over one point set: [n, 2, 8] and k [n, 8] int32 -> k [W, TW]
+    window sums, or with fold=True k [1, TW] totals.  The points stream in
+    blocks of `block` (block=0 takes default_block_size; one block when n
+    fits): each block's table is built once and read by all k MSMs, and
+    each MSM's window sums add across blocks (window sums over disjoint
+    points add), then fold once.  Nothing is read back, so the k MSMs
+    queue back to back."""
     n = coords.shape[0]
-    if block == 0:
-        block = default_block_size(n, coords.device)
+    if n % K:
+        raise ValueError(f"n={n} must be a multiple of the scan fragment size {K}")
+    block = block or default_block_size(n, coords.device)
     if block % K:
         raise ValueError(f"block={block} must be a multiple of {K}")
-    if n <= block:
-        return msm_window_sums_staged(coords, scalars, cfg, window_group=window_group,
-                                      fold=fold)
-    while n % block != 0 and block > K:
+    block = min(block, n)
+    while n % block and block > K:
         block //= 2
     if n % block:
         raise ValueError(f"n={n} must be a multiple of the block size {block}")
-    acc = None
+    w, nb = cfg.num_windows, cfg.num_buckets
+    if window_group == 0:
+        window_group = default_window_group(block, w, coords.device)
+    if w % window_group:
+        raise ValueError(f"window_group={window_group} does not divide {w} windows")
+    accs = [None] * len(scalars_list)
     for b0 in range(0, n, block):
-        rows = msm_window_sums_staged(coords[b0:b0 + block], scalars[b0:b0 + block], cfg,
-                                      window_group=window_group)
-        acc = rows if acc is None else _stage_combine(acc, rows)
-    return _stage_fold(acc, cfg.chunk_size) if fold else acc
+        table = _stage_table(coords[b0:b0 + block])
+        for i, sc in enumerate(scalars_list):
+            digits_t = _stage_digits_only(sc[b0:b0 + block], cfg)
+            rows = _stage_bpr([_stage_group(table, digits_t, g, nb, window_group)
+                               for g in range(w // window_group)], w)
+            accs[i] = rows if accs[i] is None else _stage_combine(accs[i], rows)
+        del table
+    return [_stage_fold(a, cfg.chunk_size) for a in accs] if fold else accs

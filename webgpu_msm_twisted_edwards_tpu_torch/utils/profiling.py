@@ -1,12 +1,14 @@
 """Where one MSM spends its time on the card.
 
     python -m webgpu_msm_twisted_edwards_tpu_torch.utils.profiling [--log2n 20] [--fixed-base]
+        [--n N] [--chunk-size C]
 
 Runs compute_msm (with --fixed-base: compute_msm_precomputed over a base
 that precompute_msm_base built first, untraced) once to warm up, then once
 under torch.profiler, on the inputs chip_smoke.py uses (points from the
 native oracle's generator, scalars from a seeded numpy generator, both
-resident on the card).  Prints one JSON object: the host wall time of the
+resident on the card).  --n and --chunk-size pick any size and window
+width, e.g. --n 511 for the small-input path.  Prints one JSON object: the host wall time of the
 traced run, the device time summed by kernel name and by family
 (kernel_families), the card's busy time (the union of its kernel and copy
 intervals) and its idle share of the wall time.
@@ -106,6 +108,9 @@ def main() -> int:
     ap.add_argument("--log2n", type=int, default=20)
     ap.add_argument("--fixed-base", action="store_true",
                     help="profile compute_msm_precomputed instead of compute_msm")
+    ap.add_argument("--n", type=int, default=0, help="number of points (default 2^log2n)")
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="compute_msm's window width (default: its sizing rule)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profiling: no CUDA device", file=sys.stderr)
@@ -113,7 +118,7 @@ def main() -> int:
     from ..models.cuzk import compute_msm, compute_msm_precomputed, precompute_msm_base
     from .interop import from_numpy_u32
 
-    n = 1 << args.log2n
+    n = args.n or 1 << args.log2n
     pts, sc = bench_inputs(n)
     coords = from_numpy_u32(pts.view(np.uint32).reshape(n, 2, 8), "cuda")
     scalars = from_numpy_u32(sc.view(np.uint32).reshape(n, 8), "cuda")
@@ -121,10 +126,10 @@ def main() -> int:
         pre = precompute_msm_base(coords)
         run = lambda: compute_msm_precomputed(pre, scalars)   # noqa: E731
     else:
-        run = lambda: compute_msm(coords, scalars)            # noqa: E731
+        run = lambda: compute_msm(coords, scalars, chunk_size=args.chunk_size)  # noqa: E731
     run()
     out = device_profile(run)
-    out.update(log2n=args.log2n, fixed_base=args.fixed_base,
+    out.update(n=n, chunk_size=args.chunk_size, fixed_base=args.fixed_base,
                device=torch.cuda.get_device_name(0))
     print(json.dumps(out))
     return 0 if out["device_events"] else 1
