@@ -73,7 +73,13 @@ Phases (any failure raises and exits non-zero):
    conversions), equal;
 11. validate_pipeline at each of VALIDATE_CASES (1024 points at c=8, and at
    c=4, whose bucket counts are a binary search), every stage "ok", with
-   its seconds.
+   its seconds;
+12. the benchmark CLI (webgpu_msm_twisted_edwards_tpu_torch/benchmarks/):
+   main() in this process on each argument list of BENCH_COMMANDS, every
+   subcommand but the multi-card scaling; each table printed with its
+   seconds, every "correct" cell must read ✓ (a subcommand's own check
+   raises), and the launch counts of each subcommand, from zero, must
+   include the kernels BENCH_KERNELS names for it.
 
 It prints, on lines of their own before the last, the card line from
 nvidia-smi and one JSON object {"kernels": [...]}, and as its last line
@@ -944,7 +950,9 @@ def probes_path() -> dict:
 #: Phase 9: (n, chunk_size) of the small-input path; None takes the sizing
 #: rule (c = 4 below 4096 points).
 SMALL_CASES = ((511, None), (4095, None), (4096, 6))
-SMALL_RUNS = 3
+#: One timed run after the warm one: 4095 points at c = 4 take about 11 s a
+#: run, and phase 12 needs the time.
+SMALL_RUNS = 1
 
 
 def small_path() -> dict:
@@ -1090,6 +1098,80 @@ def validate_path() -> dict:
     return out
 
 
+#: Phase 12: the argument lists of the benchmark CLI's main(), each
+#: subcommand once; sizes are the CLI's defaults unless a subcommand took
+#: over 30 s with them (PERF.md lists each cut).
+BENCH_COMMANDS = (
+    ("full", "--powers", "16", "20", "--runs", "5"),
+    ("batch", "--power", "20", "--k", "4", "--precompute", "--resident"),
+    ("dashboard", "--power", "12", "--runs", "0"),
+    ("stages", "--power", "20"),
+    ("sweep", "--powers", "20", "--chunks", "13", "14", "15", "16", "--runs", "3"),
+    ("trace", "--power", "16"),
+    ("mont",), ("barrett",), ("barrett-domb",), ("convert",), ("decompose",),
+    ("data-transfer",), ("add-points",), ("scalar-mul", "--runs", "0"), ("bucket-reduction",),
+    ("horners-rule",), ("smtvp", "--n", "256", "--runs", "1"), ("device-info",),
+)
+#: Launch keys of the kernels each subcommand must run (the bucket pipeline
+#: on the default path: table, counts, the row-reading scan, the carry
+#: scan, the masked adds, BPR and the fold).
+_PIPELINE = {"convert", "hist", "scan_fused", "ab_scan", "masked_add", "bpr1", "bpr2",
+             "reduce_rows", "horner"}
+BENCH_KERNELS = {
+    "full": _PIPELINE,
+    "batch": _PIPELINE | {"convert_pair", "double_rows", "normalize", "scan_table_signed"},
+    "dashboard": _PIPELINE | {"convert_pair", "double_rows", "normalize", "scan_table_signed"},
+    "stages": {"gather", "scan", "scan_keys", "scan_pret_keys", "scan_fused", "bpr1", "bpr2",
+               "reduce_rows"},
+    "sweep": _PIPELINE,
+    "trace": _PIPELINE - {"horner"},
+    "convert": {"convert", "convert_pair"},
+    "add-points": {"masked_add"},
+    "bucket-reduction": {"bpr1", "bpr2", "reduce_rows"},
+    "horners-rule": {"horner"},
+    "smtvp": _PIPELINE - {"horner"},
+}
+
+
+def bench_path() -> dict:
+    """Phase 12: the benchmark CLI's main() on each of BENCH_COMMANDS, its
+    table echoed, its seconds and launch counts kept; raises unless every
+    "correct" cell reads ✓ and each subcommand launched its kernels."""
+    import io
+
+    from webgpu_msm_twisted_edwards_tpu_torch.benchmarks.__main__ import main as bench_main
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+
+    out = {}
+    for argv in BENCH_COMMANDS:
+        cmd = argv[0]
+        buf = io.StringIO()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_main(list(argv))
+        seconds = time.time() - t0
+        launched = {k: v for k, v in _build.launches.items() if v}
+        text = buf.getvalue()
+        log(f"benchmarks {' '.join(argv)}: {seconds:.1f} s, launches {launched}\n{text.rstrip()}")
+        # The table main() prints last (subcommands print rows as they go).
+        table = [ln for ln in text.rstrip().rsplit("\n\n", 1)[-1].splitlines()
+                 if ln.startswith("| ")]
+        head = [c.strip() for c in table[0].strip("|").split("|")] if table else []
+        cells = []
+        if "correct" in head:
+            col = head.index("correct")
+            cells = [ln.strip("|").split("|")[col].strip() for ln in table[1:]]
+            if not cells or any(c != "✓" for c in cells):
+                raise AssertionError(f"benchmarks {cmd}: correct cells {cells}")
+        missing = BENCH_KERNELS.get(cmd, set()) - set(launched)
+        if rc != 0 or missing:
+            raise AssertionError(f"benchmarks {cmd}: rc {rc}, kernels not launched {missing}")
+        out[" ".join(argv)] = {"s": seconds, "launches": launched, "correct": cells}
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1202,12 +1284,19 @@ def main() -> int:
     vp["phase_s"] = time.time() - t_vp
     log(f"validator phase: {vp['phase_s']:.1f} s")
 
+    t_bn = time.time()
+    bn = bench_path()
+    bench_s = time.time() - t_bn
+    log(f"benchmarks phase: {bench_s:.1f} s; by subcommand, s: "
+        f"{ {k: round(v['s'], 1) for k, v in bn.items()} }")
+
     log(json.dumps({"e2e": {k: {"median_ms": v["median_ms"], "runs_ms": v["runs_ms"],
                                 "first_ms": v["first_ms"], "launches": v["launches"],
                                 "masked_add_bound_ms": v["masked_add_bound_ms"],
                                 "oracle": v["oracle"]} for k, v in e2e.items()},
                     "fixed_base_2^20": fb, "configs_2^20": cf, "probes": pr["probes"],
                     "small_path": sp, "batch_2^20": bt, "validate": vp,
+                    "benchmarks": {"phase_s": bench_s, "commands": bn},
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(card)

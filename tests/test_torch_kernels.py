@@ -9,6 +9,7 @@ from fixed seeds and handed to both.
 
 import jax.numpy as jnp
 import numpy as np
+import jax_kernel_cache
 import pytest
 import torch
 
@@ -40,6 +41,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_kernels_compiled_once():
+    """Repeated JAX kernel calls reuse one compile (tests/jax_kernel_cache.py)."""
+    with jax_kernel_cache.cached():
+        yield
 
 
 def _affine_points(n: int, seed: int):
@@ -126,10 +134,10 @@ def test_ab_scan_level():
 
 
 def test_seg_carry_scan_recursion():
-    """n > kab: two levels, the chunk padding, and the masked-add carry
-    apply."""
+    """n > kab: two levels, the chunk padding (10 steps to 12), and the
+    masked-add carry apply."""
     rng = np.random.default_rng(9)
-    n = 20
+    n = 10
     a = rng.integers(0, 2, size=n).astype(np.int32)
     b = _point_rows(n, 9)
     want = JS.seg_carry_scan(jnp.asarray(a), jnp.asarray(b), kab=4, interpret=True)
@@ -172,8 +180,8 @@ def test_reduce_rows_per_window(w, per_window):
 
 
 def test_horner_fold_identity_padding():
-    """W = 20 windows are padded with identity rows to 32 lanes."""
-    sums = _point_rows(20, 13)
+    """W = 5 windows are padded with identity rows to 8 lanes."""
+    sums = _point_rows(5, 13)
     want = JB.horner_fold(jnp.asarray(sums), 13, interpret=True)
     _eq(want, B.horner_fold(from_numpy_u32(sums), 13))
 

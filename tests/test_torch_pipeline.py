@@ -18,6 +18,7 @@ import sys
 
 import jax.numpy as jnp
 import numpy as np
+import jax_kernel_cache
 import pytest
 import torch
 
@@ -49,6 +50,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_kernels_compiled_once():
+    """Repeated JAX kernel calls reuse one compile (tests/jax_kernel_cache.py)."""
+    with jax_kernel_cache.cached():
+        yield
 
 
 def _points(n: int, seed: int) -> list[tuple[int, int]]:
@@ -244,7 +252,8 @@ def test_package_imports_no_jax():
             "    importlib.import_module(m.name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'webgpu_msm_twisted_edwards_tpu'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            f"assert '{PKG}.benchmarks.micro' in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -272,4 +281,10 @@ def test_no_module_imports_jax_or_the_jax_package():
                 continue
             found += [(path, r) for r in roots if r in banned]
     assert len(files) > 20
+    # The benchmarks and the modules they race are walked too.
+    walked = {os.path.relpath(f, os.path.join(REPO, PKG)) for f in files}
+    assert {"benchmarks/__main__.py", "benchmarks/full.py", "benchmarks/micro.py",
+            "benchmarks/timing.py", "models/baselines.py", "ops/u256.py", "ops/smtvp.py",
+            "ops/scalar_mul.py", "ops/montgomery_variants.py", "ops/barrett.py",
+            "ops/barrett_domb.py", "cpu/barrett_domb.py", "utils/test_data.py"} <= walked
     assert not found, found

@@ -15,6 +15,7 @@ import sys
 
 import jax.numpy as jnp
 import numpy as np
+import jax_kernel_cache
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
@@ -43,6 +44,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_kernels_compiled_once():
+    """Repeated JAX kernel calls reuse one compile (tests/jax_kernel_cache.py)."""
+    with jax_kernel_cache.cached():
+        yield
 
 
 @pytest.fixture(scope="module")

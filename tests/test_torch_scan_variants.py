@@ -21,6 +21,7 @@ package on the CPU, bit for bit (tolerance 0: integer arithmetic).
 
 import jax.numpy as jnp
 import numpy as np
+import jax_kernel_cache
 import pytest
 import torch
 
@@ -56,6 +57,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_kernels_compiled_once():
+    """Repeated JAX kernel calls reuse one compile (tests/jax_kernel_cache.py)."""
+    with jax_kernel_cache.cached():
+        yield
 
 
 def _eq(jax_out, port_out: torch.Tensor) -> None:

@@ -45,12 +45,23 @@ def _u64x4_to_int(a: np.ndarray) -> int:
     return v
 
 
+def available() -> bool:
+    """Whether the native library is built (it is built at first use
+    otherwise)."""
+    return os.path.exists(_LIB_PATH)
+
+
 def gen_points(n: int, seed: int = 1) -> np.ndarray:
     """n deterministic affine subgroup points as an [n, 8] uint64 array
     (x in words 0..3, y in words 4..7), from a native additive walk."""
     out = np.zeros((n, 8), dtype=np.uint64)
     _lib().oracle_gen_points(n, seed, _ptr(out))
     return out
+
+
+def points_u64_to_ints(arr: np.ndarray) -> list[tuple[int, int]]:
+    """[n, 8] uint64 points -> affine (x, y) int pairs."""
+    return [(_u64x4_to_int(row[:4]), _u64x4_to_int(row[4:])) for row in arr]
 
 
 def _check_inputs(points: np.ndarray, scalars: np.ndarray):

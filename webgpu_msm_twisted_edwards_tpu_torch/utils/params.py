@@ -71,6 +71,9 @@ class FieldParams:
     r2: int
     #: Edwards d in Montgomery form: d*R mod p.
     edwards_d_mont: int
+    #: The Barrett-Domb constant floor(2^(2s+z) / p), s the bit length of p
+    #: and z = num_words*word_size - s the limbs' slack.
+    barrett_domb_m: int
     #: Limb mask 2^word_size - 1.
     mask: int
 
@@ -92,7 +95,8 @@ def compute_field_params(p: int = P, word_size: int = WORD_SIZE) -> FieldParams:
     `word_size`."""
     if word_size <= 0:
         raise ValueError(f"word_size must be positive, got {word_size}")
-    num_words = -(-p.bit_length() // word_size)
+    p_width = p.bit_length()
+    num_words = -(-p_width // word_size)
     k = (1 << 32) // (1 << (2 * word_size))
     r_full = 1 << (num_words * word_size)
     g, rinv, pprime = _egcd(r_full, p)
@@ -111,6 +115,7 @@ def compute_field_params(p: int = P, word_size: int = WORD_SIZE) -> FieldParams:
         rinv=rinv % p,
         r2=(r_full * r_full) % p,
         edwards_d_mont=(EDWARDS_D * r_full) % p,
+        barrett_domb_m=(1 << (p_width + num_words * word_size)) // p,
         mask=(1 << word_size) - 1,
     )
 

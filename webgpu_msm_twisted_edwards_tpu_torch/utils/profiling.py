@@ -66,16 +66,23 @@ def kernel_families(kernels: list[dict]) -> dict[str, list]:
     return dict(sorted(fam.items(), key=lambda kv: -kv[1][0]))
 
 
-def device_profile(fn) -> dict:
-    """Run fn() once under torch.profiler; summarize its device events."""
+def device_profile(fn, trace_path: str | None = None) -> dict:
+    """Run fn() once under torch.profiler; summarize its device events (none
+    without a CUDA card: then only the host is traced).  With `trace_path`,
+    the chrome trace is written there."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    cuda = torch.cuda.is_available()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
     by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
     spans = []
     for ev in prof.events():

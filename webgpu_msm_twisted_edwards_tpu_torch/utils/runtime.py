@@ -1,9 +1,12 @@
-"""Device resolution and device facts."""
+"""Device resolution, device facts, and copies between the host and the
+device."""
 
 from __future__ import annotations
 
 import subprocess
+from typing import Any
 
+import numpy as np
 import torch
 
 #: Device memory assumed for a CPU run (the plain versions): sizes the window
@@ -42,3 +45,51 @@ def card_info() -> str:
         capture_output=True, text=True, check=True,
     )
     return res.stdout.strip()
+
+
+def device_info(device=None) -> dict[str, Any]:
+    """Identity and memory of `device` (default: the CUDA card): backend,
+    name, index, device count, process index, the allocator's statistics
+    and, on a card, its name and power limit from nvidia-smi."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return {"backend": device.type, "kind": device.type, "id": 0, "num_devices": 1,
+                "process_index": 0, "memory_stats": None, "card": None}
+    index = torch.cuda.current_device() if device.index is None else device.index
+    props = torch.cuda.get_device_properties(index)
+    stats = torch.cuda.memory_stats(index)
+    free, total = torch.cuda.mem_get_info(index)
+    return {
+        "backend": "cuda",
+        "kind": props.name,
+        "id": index,
+        "num_devices": torch.cuda.device_count(),
+        "process_index": 0,
+        "memory_stats": {
+            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+            "bytes_limit": total,
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+            "bytes_free": free,
+        },
+        "compute_capability": f"{props.major}.{props.minor}",
+        "multiprocessors": props.multi_processor_count,
+        "card": card_info(),
+    }
+
+
+def to_device(arr: np.ndarray, device=None) -> torch.Tensor:
+    """A host array on `device` (default: the CUDA card); a uint32 array
+    becomes an int32 tensor with the same bits, as the port holds u32
+    data."""
+    device = resolve_device(device)
+    arr = np.array(arr)                      # a writable, contiguous copy
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(arr).to(device)
+
+
+def read_back(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as a numpy array (int32 as uint32, the inverse of
+    to_device)."""
+    arr = t.detach().cpu().contiguous().numpy()
+    return arr.view(np.uint32) if arr.dtype == np.int32 else arr
