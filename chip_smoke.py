@@ -76,10 +76,23 @@ Phases (any failure raises and exits non-zero):
    its seconds;
 12. the benchmark CLI (webgpu_msm_twisted_edwards_tpu_torch/benchmarks/):
    main() in this process on each argument list of BENCH_COMMANDS, every
-   subcommand but the multi-card scaling; each table printed with its
+   subcommand once (scaling in both modes); each table printed with its
    seconds, every "correct" cell must read ✓ (a subcommand's own check
    raises), and the launch counts of each subcommand, from zero, must
-   include the kernels BENCH_KERNELS names for it.
+   include the kernels BENCH_KERNELS names for it;
+13. the multi-device layer (webgpu_msm_twisted_edwards_tpu_torch/parallel/):
+   compute_msm_sharded at 2^20 over meshes of SHARD_MESHES shards (distinct
+   cards where the machine has them, else cuda:0 repeated), staged and
+   shard after shard, and CHAIN_SHARDS shards at CHAIN_N points (the chain
+   fold), each with its launch counts of one run from zero
+   (sharded_launches), the fold's reduce or masked adds held against their
+   plain versions, SHARDED_RUNS timed runs and its peak memory, each result
+   equal to phase 3's answer (the chain's to compute_msm and the oracle);
+   compute_msm_batch_sharded over phase 10's vectors on BATCH_SHARDS shards,
+   equal to phase 10's answers; and torch.distributed jobs in child
+   processes (two gloo ranks on the card, one NCCL rank, two NCCL ranks on
+   two cards where there are two), each rank's compute_msm_multihost equal
+   to phase 3's answer and its compute_msm_batch_multihost to phase 10's.
 
 It prints, on lines of their own before the last, the card line from
 nvidia-smi and one JSON object {"kernels": [...]}, and as its last line
@@ -1009,6 +1022,20 @@ BATCH_SEED = 43
 BATCH_RUNS = 3
 
 
+def batch_vectors(n: int, scalars: torch.Tensor) -> list[torch.Tensor]:
+    """The batch's BATCH_K scalar vectors on the card: `scalars` (phase 3's)
+    and BATCH_K - 1 more below 2^250 from numpy seed BATCH_SEED."""
+    from webgpu_msm_twisted_edwards_tpu_torch.utils.interop import from_numpy_u32
+
+    rng = np.random.default_rng(BATCH_SEED)
+    vectors = [scalars]
+    for _ in range(BATCH_K - 1):
+        sc = rng.integers(0, 1 << 62, size=(n, 4), dtype=np.uint64)
+        sc[:, 3] &= (1 << 58) - 1
+        vectors.append(from_numpy_u32(sc.view(np.uint32).reshape(n, 8), "cuda"))
+    return vectors
+
+
 def batch_path(n: int, want: dict, one_shot_ms: float) -> dict:
     """Drive compute_msm_batch over BATCH_K vectors at n points: one table
     conversion and BATCH_K scans a window group, each result equal to
@@ -1017,16 +1044,10 @@ def batch_path(n: int, want: dict, one_shot_ms: float) -> dict:
     from webgpu_msm_twisted_edwards_tpu_torch import compute_msm, compute_msm_batch
     from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
-    from webgpu_msm_twisted_edwards_tpu_torch.utils.interop import from_numpy_u32
     from webgpu_msm_twisted_edwards_tpu_torch.utils.params import tpu_msm_config
 
     _, _, coords, scalars = card_inputs(n)
-    rng = np.random.default_rng(BATCH_SEED)
-    vectors = [scalars]
-    for _ in range(BATCH_K - 1):
-        sc = rng.integers(0, 1 << 62, size=(n, 4), dtype=np.uint64)
-        sc[:, 3] &= (1 << 58) - 1
-        vectors.append(from_numpy_u32(sc.view(np.uint32).reshape(n, 8), "cuda"))
+    vectors = batch_vectors(n, scalars)
     cfg = tpu_msm_config(n)
     groups = cfg.num_windows // MP.default_window_group(n, cfg.num_windows, coords.device)
 
@@ -1070,7 +1091,7 @@ def batch_path(n: int, want: dict, one_shot_ms: float) -> dict:
     return {"n": n, "k": BATCH_K, "launches": launches, "first_ms": first_ms,
             "runs_ms": times, "median_ms": median, "one_shot_median_ms": one_shot_ms,
             "k_one_shot_ms": BATCH_K * one_shot_ms, "two_block_ms": two_block_ms,
-            "two_block_launches": launches2, "equals_compute_msm": True}
+            "two_block_launches": launches2, "equals_compute_msm": True, "results": res}
 
 
 #: Phase 11: (n, chunk_size) of validate_pipeline.
@@ -1099,8 +1120,8 @@ def validate_path() -> dict:
 
 
 #: Phase 12: the argument lists of the benchmark CLI's main(), each
-#: subcommand once; sizes are the CLI's defaults unless a subcommand took
-#: over 30 s with them (PERF.md lists each cut).
+#: subcommand once (scaling in both modes); sizes are the CLI's defaults
+#: unless a subcommand took over 30 s with them (PERF.md lists each cut).
 BENCH_COMMANDS = (
     ("full", "--powers", "16", "20", "--runs", "5"),
     ("batch", "--power", "20", "--k", "4", "--precompute", "--resident"),
@@ -1111,6 +1132,7 @@ BENCH_COMMANDS = (
     ("mont",), ("barrett",), ("barrett-domb",), ("convert",), ("decompose",),
     ("data-transfer",), ("add-points",), ("scalar-mul", "--runs", "0"), ("bucket-reduction",),
     ("horners-rule",), ("smtvp", "--n", "256", "--runs", "1"), ("device-info",),
+    ("scaling", "--power", "20"), ("scaling", "--power", "20", "--mode", "batch"),
 )
 #: Launch keys of the kernels each subcommand must run (the bucket pipeline
 #: on the default path: table, counts, the row-reading scan, the carry
@@ -1130,6 +1152,7 @@ BENCH_KERNELS = {
     "bucket-reduction": {"bpr1", "bpr2", "reduce_rows"},
     "horners-rule": {"horner"},
     "smtvp": _PIPELINE - {"horner"},
+    "scaling": _PIPELINE,
 }
 
 
@@ -1169,6 +1192,235 @@ def bench_path() -> dict:
             raise AssertionError(f"benchmarks {cmd}: rc {rc}, kernels not launched {missing}")
         out[" ".join(argv)] = {"s": seconds, "launches": launched, "correct": cells}
         torch.cuda.empty_cache()
+    return out
+
+
+#: Phase 13: the point-axis meshes of compute_msm_sharded at 2^20 (shards),
+#: each run staged and shard after shard; the mesh of the chain fold and its
+#: point count; the batch's mesh; timed runs a configuration; the seconds a
+#: torch.distributed job may take.
+SHARD_MESHES = (1, 2, 4)
+CHAIN_SHARDS, CHAIN_N = 3, 3 << 18
+BATCH_SHARDS = 4
+SHARDED_RUNS = 3
+DIST_TIMEOUT_S = 300
+
+
+def phase_mesh(k: int) -> list[torch.device]:
+    """k shards: card i % device_count, so distinct cards where the machine
+    has k of them, and cuda:0 repeated on a one-card machine."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(k)]
+
+
+def sharded_launches(k: int, groups: int) -> dict:
+    """Launches of one compute_msm_sharded over k shards of `groups` window
+    groups each: per shard and group the counts, the row-reading scan, the
+    carry scan's three levels and three masked adds (its two carry applies
+    and the extraction); per shard the table, the two BPR stages and the
+    per-window reduce; then the cross-shard fold (one reduce over a
+    power-of-two mesh of two or more, else k - 1 masked adds) and one Horner
+    fold."""
+    pow2 = k & (k - 1) == 0
+    return {"convert": k, "hist": k * groups, "scan_fused": k * groups,
+            "ab_scan": 3 * k * groups,
+            "masked_add": MASKED_ADD_LAUNCHES * k * groups + (0 if pow2 else k - 1),
+            "bpr1": k, "bpr2": k, "reduce_rows": k + (1 if pow2 and k > 1 else 0), "horner": 1}
+
+
+def sharded_run(coords, scalars, k: int, staged: bool, want: dict) -> dict:
+    """compute_msm_sharded over phase_mesh(k): launch counts of the first run
+    from zero against sharded_launches, its result against `want`, the
+    fold's reduce or masked adds held against their plain versions, then
+    SHARDED_RUNS timed runs."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm_sharded
+    from webgpu_msm_twisted_edwards_tpu_torch.ops import msm_pipeline as MP
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import bpr as B
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import ec as E
+    from webgpu_msm_twisted_edwards_tpu_torch.parallel import sharded
+
+    n = coords.shape[0]
+    mesh = phase_mesh(k)
+    cfg, pipeline = sharded.sharded_msm_plan(n, k)
+    groups = cfg.num_windows // MP.default_window_group(n // k, cfg.num_windows, mesh[0])
+    name = f"{k} shards, {'staged' if staged else 'shard after shard'}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with every_call("reduce_rows", "masked_add") as calls:
+        t0 = time.time()
+        res = compute_msm_sharded(coords, scalars, mesh=mesh, staged=staged)
+        first_ms = (time.time() - t0) * 1e3
+    launches = {key: v for key, v in _build.launches.items() if v}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if res != want:
+        raise AssertionError(f"sharded {name}: got {res}, want {want}")
+    expected = {key: v for key, v in sharded_launches(k, groups).items() if v}
+    if pipeline != "kernels" or launches != expected:
+        raise AssertionError(f"sharded {name}: launches {launches}, expected {expected}")
+    w = cfg.num_windows
+    if k & (k - 1) == 0 and k > 1:
+        fold = calls["reduce_rows"][-1:]
+        if fold[0][0].shape[0] != w * k or fold[0][1] != k:
+            raise AssertionError(f"sharded {name}: the last reduce is not the fold")
+        hold_calls(f"reduce_rows (fold of {k})", B.reduce_rows_per_window,
+                   B.reduce_rows_per_window_plain, fold)
+    elif k > 1:
+        fold = calls["masked_add"][-(k - 1):]
+        if any(a[0].shape[0] != w for a in fold):
+            raise AssertionError(f"sharded {name}: the last masked adds are not the fold")
+        hold_calls(f"masked_add (fold of {k})", E.masked_add_rows, E.masked_add_rows_plain, fold)
+    del calls
+    times = []
+    for _ in range(SHARDED_RUNS):
+        t0 = time.time()
+        again = compute_msm_sharded(coords, scalars, mesh=mesh, staged=staged)
+        times.append((time.time() - t0) * 1e3)
+        if again != res:
+            raise AssertionError(f"sharded {name}: runs disagree")
+    out = {"mesh": [str(d) for d in mesh], "c": cfg.chunk_size, "groups": groups,
+           "launches": launches, "first_ms": first_ms, "runs_ms": times,
+           "median_ms": statistics.median(times), "max_memory_allocated": peak_bytes}
+    log(f"compute_msm_sharded at {n} points over {name} {out['mesh']} (c="
+        f"{cfg.chunk_size}): median {out['median_ms']:.2f} ms of {SHARDED_RUNS} "
+        f"{[round(t, 2) for t in times]}, first run {first_ms:.1f} ms, peak "
+        f"{peak_bytes / 2**30:.2f} GiB, launches {launches}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_worker(backend: str, world: str, rank: str, port: str) -> int:
+    """One rank of phase 13's torch.distributed job (run in a child process
+    from the repository's root): compute_msm_multihost on its share of the
+    2^20 inputs, then compute_msm_batch_multihost on two of phase 10's
+    vectors; prints one line "DIST {json}"."""
+    sys.path.insert(0, REPO)
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+    from webgpu_msm_twisted_edwards_tpu_torch.parallel import distributed as D
+
+    world, rank = int(world), int(rank)
+    D.initialize(f"tcp://127.0.0.1:{port}", world_size=world, rank=rank, backend=backend)
+    n = 1 << 20
+    _, _, coords, scalars = card_inputs(n)
+    per = n // world
+    _build.reset_launch_counts()
+    t0 = time.time()
+    res = D.compute_msm_multihost(coords[rank * per:(rank + 1) * per],
+                                  scalars[rank * per:(rank + 1) * per])
+    msm_ms = (time.time() - t0) * 1e3
+    launches = {k: v for k, v in _build.launches.items() if v}
+    mine = batch_vectors(n, scalars)[2 * rank:2 * rank + 2]
+    batch = D.compute_msm_batch_multihost(coords, mine)
+    print("DIST " + json.dumps({
+        "backend": backend, "world": world, "rank": rank, "device": str(coords.device),
+        "result": [str(res["x"]), str(res["y"])], "first_ms": msm_ms, "launches": launches,
+        "batch": [[str(r["x"]), str(r["y"])] for r in batch]}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dist_jobs(want: dict, batch_want: list) -> list[dict]:
+    """The torch.distributed jobs of phase 13, all started at once in child
+    processes: two ranks over gloo on the card (two ranks on one card), one
+    NCCL rank, and two NCCL ranks a card each where the machine has two
+    cards.  Every rank's MSM must equal `want` (phase 3's 2^20 answer) and
+    its two batch results phase 10's of its vectors; a child that exits
+    non-zero or outlasts DIST_TIMEOUT_S fails the phase."""
+    import socket
+
+    jobs = [("gloo", 2), ("nccl", 1)] + ([("nccl", 2)] if torch.cuda.device_count() >= 2 else [])
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    procs = []
+    for backend, world in jobs:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for rank in range(world):
+            cmd = [sys.executable, "-c",
+                   "import sys, chip_smoke; sys.exit(chip_smoke.dist_worker(*sys.argv[1:]))",
+                   backend, str(world), str(rank), str(port)]
+            procs.append(((backend, world, rank), subprocess.Popen(
+                cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    outs = {}
+    try:
+        deadline = time.time() + DIST_TIMEOUT_S
+        for key, proc in procs:
+            outs[key] = proc.communicate(timeout=max(1.0, deadline - time.time()))[0]
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    rows = []
+    for key, proc in procs:
+        out = outs[key]
+        lines = [ln for ln in out.splitlines() if ln.startswith("DIST ")]
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"distributed {key}: rc {proc.returncode}\n{out[-3000:]}")
+        row = json.loads(lines[0][5:])
+        res = {"x": int(row["result"][0]), "y": int(row["result"][1])}
+        rank = key[2]
+        batch = [{"x": int(x), "y": int(y)} for x, y in row["batch"]]
+        if res != want or batch != batch_want[2 * rank:2 * rank + 2]:
+            raise AssertionError(f"distributed {key}: {res}, batch {batch}")
+        missing = set(sharded_launches(1, 1)) - set(row["launches"])
+        if missing:
+            raise AssertionError(f"distributed {key}: kernels not launched {missing}")
+        rows.append({k: row[k] for k in ("backend", "world", "rank", "device", "first_ms",
+                                        "launches")})
+        log(f"distributed {key[0]}, {key[1]} rank(s), rank {rank} on {row['device']}: equal to "
+            f"the 2^20 answer and to phase 10's batch answers, first MSM {row['first_ms']:.1f} "
+            f"ms, launches {row['launches']}")
+    return rows
+
+
+def multi_device_path(want: dict, batch_want: list) -> dict:
+    """Phase 13: compute_msm_sharded at 2^20 over SHARD_MESHES, staged and
+    shard after shard, equal to phase 3's answer `want`; CHAIN_SHARDS shards
+    at CHAIN_N points, equal to compute_msm and the oracle;
+    compute_msm_batch_sharded over phase 10's vectors, equal to its answers
+    `batch_want`; the torch.distributed jobs."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm, compute_msm_batch_sharded
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
+    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+
+    out = {"cards": torch.cuda.device_count(), "meshes": {}}
+    _, _, coords, scalars = card_inputs(1 << 20)
+    for k in SHARD_MESHES:
+        for staged in (True, False):
+            out["meshes"][f"{k}, staged={staged}"] = sharded_run(coords, scalars, k, staged, want)
+    cpts, csc, ccoords, cscalars = card_inputs(CHAIN_N)
+    chain_want = compute_msm(ccoords, cscalars)
+    if (chain_want["x"], chain_want["y"]) != oracle.msm_parallel(cpts, csc, c=16):
+        raise AssertionError(f"compute_msm at {CHAIN_N} points differs from the oracle")
+    out["meshes"][f"{CHAIN_SHARDS} at {CHAIN_N}, staged=True"] = sharded_run(
+        ccoords, cscalars, CHAIN_SHARDS, True, chain_want)
+    del cpts, csc, ccoords, cscalars
+
+    mesh = phase_mesh(BATCH_SHARDS)
+    vectors = batch_vectors(1 << 20, scalars)
+    _build.reset_launch_counts()
+    t0 = time.time()
+    got = compute_msm_batch_sharded(coords, vectors, mesh=mesh)
+    batch_ms = (time.time() - t0) * 1e3
+    launches = {k: v for k, v in _build.launches.items() if v}
+    per = len(vectors) // BATCH_SHARDS
+    if got != batch_want or launches.get("convert") != BATCH_SHARDS or launches.get(
+            "horner") != len(vectors) or launches.get("scan_fused", 0) < len(vectors):
+        raise AssertionError(f"batch sharded: launches {launches}, "
+                             f"{'equal' if got == batch_want else 'different results'}")
+    out["batch"] = {"mesh": [str(d) for d in mesh], "k": len(vectors), "per_shard": per,
+                    "first_ms": batch_ms, "launches": launches}
+    log(f"compute_msm_batch_sharded 2^20, k={len(vectors)} over {out['batch']['mesh']}: "
+        f"{batch_ms:.1f} ms (first run), equal to phase 10's answers, launches {launches}")
+    del vectors, coords, scalars
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    out["distributed"] = dist_jobs(want, batch_want)
+    out["distributed_s"] = time.time() - t0
     return out
 
 
@@ -1272,6 +1524,7 @@ def main() -> int:
 
     t_bt = time.time()
     bt = batch_path(1 << 20, e2e["2^20"]["result"], e2e["2^20"]["median_ms"])
+    batch_want = bt.pop("results")
     bt["phase_s"] = time.time() - t_bt
     log(f"compute_msm_batch 2^20, k={bt['k']}: median {bt['median_ms']:.2f} ms of "
         f"{BATCH_RUNS} {[round(t, 2) for t in bt['runs_ms']]} against {bt['k']} x the "
@@ -1290,13 +1543,23 @@ def main() -> int:
     log(f"benchmarks phase: {bench_s:.1f} s; by subcommand, s: "
         f"{ {k: round(v['s'], 1) for k, v in bn.items()} }")
 
+    t_md = time.time()
+    md = multi_device_path(e2e["2^20"]["result"], batch_want)
+    md["phase_s"] = time.time() - t_md
+    by_mesh = {k: (round(v["median_ms"], 2), round(v["first_ms"], 1))
+               for k, v in md["meshes"].items()}
+    log(f"multi-device phase: {md['phase_s']:.1f} s ({md['cards']} card(s)); by mesh, median "
+        f"and first-run ms: {by_mesh}; 4 shards' peak "
+        f"{md['meshes']['4, staged=True']['max_memory_allocated'] / 2**30:.2f} GiB; "
+        f"distributed jobs {md['distributed_s']:.1f} s")
+
     log(json.dumps({"e2e": {k: {"median_ms": v["median_ms"], "runs_ms": v["runs_ms"],
                                 "first_ms": v["first_ms"], "launches": v["launches"],
                                 "masked_add_bound_ms": v["masked_add_bound_ms"],
                                 "oracle": v["oracle"]} for k, v in e2e.items()},
                     "fixed_base_2^20": fb, "configs_2^20": cf, "probes": pr["probes"],
                     "small_path": sp, "batch_2^20": bt, "validate": vp,
-                    "benchmarks": {"phase_s": bench_s, "commands": bn},
+                    "benchmarks": {"phase_s": bench_s, "commands": bn}, "multi_device": md,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(card)

@@ -1,6 +1,7 @@
 """The port's benchmarks package on the CPU (device="cpu": the kernels'
 plain versions): the table and median helpers, the CLI's subcommands
-against the JAX package's, the fixture-first inputs, the regression gate
+against the JAX package's (scaling's run on the CPU is in
+test_torch_sharded.py), the fixture-first inputs, the regression gate
 and its merged curve, one full.run on a 512-point fixture, and the
 registry's MSMs at 512 points.  Results are exact (tolerance 0).
 """
@@ -92,9 +93,13 @@ def _subcommands(main) -> set[str]:
 
 
 def test_cli_lists_every_jax_subcommand_but_scaling():
+    """Every JAX subcommand, scaling too (the name is from before the
+    scaling benchmark was ported)."""
     jax_cmds = _subcommands(jax_cli.main)
     assert "scaling" in jax_cmds and "dashboard" in jax_cmds
-    assert _subcommands(cli.main) == jax_cmds - {"scaling"}
+    assert _subcommands(cli.main) == jax_cmds
+    args = cli.parser().parse_args(["scaling", "--power", "20", "--mode", "batch"])
+    assert (args.power, args.mode, args.device) == (20, "batch", None)
     args = cli.parser().parse_args(["full", "--powers", "16", "20", "--device", "cpu"])
     assert (args.powers, args.device) == ([16, 20], "cpu")
 

@@ -323,6 +323,41 @@ def test_compute_msm_batch_cuda_matches_one_shot(dev):
     assert got == [compute_msm(coords, v) for v in vectors]
 
 
+@pytest.mark.parametrize("shards,staged", [(2, True), (2, False), (3, True)])
+def test_sharded_kernel_path_matches_compute_msm(dev, monkeypatch, shards, staged):
+    """compute_msm_sharded over [cuda:0] * shards, 4096 points a shard (c = 13,
+    the kernels pipeline), equals compute_msm on the same points; the
+    cross-shard fold (the per-window reduce for two shards, masked adds for
+    three) equals its plain version on the gathered rows."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm, compute_msm_sharded
+    from webgpu_msm_twisted_edwards_tpu_torch.parallel import sharded
+
+    n = shards * 4096
+    pts, sc = _oracle_inputs(n, 12)
+    coords = from_numpy_u32(pts.view(np.uint32).reshape(n, 2, 8), dev)
+    scalars = from_numpy_u32(sc.view(np.uint32).reshape(n, 8), dev)
+    seen, fold = [], sharded.fold_window_sums
+
+    def spy(rows):
+        seen.append(rows)
+        return fold(rows)
+
+    monkeypatch.setattr(sharded, "fold_window_sums", spy)
+    got = compute_msm_sharded(coords, scalars, mesh=[dev] * shards, staged=staged)
+    assert got == compute_msm(coords, scalars)
+    (rows,) = seen
+    if shards == 2:
+        gw = torch.stack(rows, dim=1).reshape(-1, E.TW)
+        assert _same(B.reduce_rows_per_window(gw, 2), B.reduce_rows_per_window_plain(gw, 2))
+    else:
+        ones = torch.ones((rows[0].shape[0],), dtype=torch.int32, device=rows[0].device)
+        want = got_rows = rows[0]
+        for r in rows[1:]:
+            got_rows = E.masked_add_rows(got_rows, r, ones)
+            want = E.masked_add_rows_plain(want, r, ones)
+        assert _same(got_rows, want)
+
+
 def test_validate_pipeline_cuda(dev):
     from webgpu_msm_twisted_edwards_tpu_torch import validate_pipeline
     from webgpu_msm_twisted_edwards_tpu_torch.utils.limbs import u32_words_to_ints

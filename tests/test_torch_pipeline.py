@@ -253,7 +253,8 @@ def test_package_imports_no_jax():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'webgpu_msm_twisted_edwards_tpu'))\n"
             "assert not bad, bad\n"
-            f"assert '{PKG}.benchmarks.micro' in sys.modules\n")
+            f"assert '{PKG}.benchmarks.micro' in sys.modules\n"
+            f"assert '{PKG}.parallel.distributed' in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -281,10 +282,13 @@ def test_no_module_imports_jax_or_the_jax_package():
                 continue
             found += [(path, r) for r in roots if r in banned]
     assert len(files) > 20
-    # The benchmarks and the modules they race are walked too.
+    # The benchmarks, the modules they race and the multi-device layer are
+    # walked too.
     walked = {os.path.relpath(f, os.path.join(REPO, PKG)) for f in files}
     assert {"benchmarks/__main__.py", "benchmarks/full.py", "benchmarks/micro.py",
             "benchmarks/timing.py", "models/baselines.py", "ops/u256.py", "ops/smtvp.py",
             "ops/scalar_mul.py", "ops/montgomery_variants.py", "ops/barrett.py",
-            "ops/barrett_domb.py", "cpu/barrett_domb.py", "utils/test_data.py"} <= walked
+            "ops/barrett_domb.py", "cpu/barrett_domb.py", "utils/test_data.py",
+            "benchmarks/scaling.py", "parallel/__init__.py", "parallel/sharded.py",
+            "parallel/distributed.py", "cpu/matrices.py", "cpu/preaggregation.py"} <= walked
     assert not found, found

@@ -53,6 +53,12 @@ def parser() -> argparse.ArgumentParser:
     p_sweep.add_argument("--chunks", type=int, nargs="+", default=[13, 14, 15, 16])
     p_sweep.add_argument("--runs", type=int, default=3)
 
+    p_scale = add("scaling", "MSM time against the number of cards in the mesh")
+    p_scale.add_argument("--power", type=int, default=18)
+    p_scale.add_argument("--mode", choices=("points", "batch"), default="points",
+                         help="split one MSM's points (latency) or a batch of MSMs over "
+                              "one point set (throughput) over the cards")
+
     p_trace = add("trace", "write a torch.profiler trace of one MSM")
     p_trace.add_argument("--power", type=int, default=16)
     p_trace.add_argument("--log-dir", type=str, default=None,
@@ -87,6 +93,10 @@ def main(argv=None) -> int:
                            runs=args.runs, device=dev)
     elif args.cmd == "dashboard":
         table = micro.dashboard(power=args.power, runs=args.runs, device=dev)
+    elif args.cmd == "scaling":
+        from . import scaling
+
+        table = scaling.run(log2n=args.power, mode=args.mode, device=dev)
     elif args.cmd == "trace":
         table = micro.trace(power=args.power, device=dev,
                             **({"log_dir": args.log_dir} if args.log_dir else {}))

@@ -237,24 +237,39 @@ def compute_msm_batch(points, scalars_list, chunk_size: int | None = None,
     after the last MSM is queued.  Inputs that compute_msm sends to the
     small-input path run it once per vector.  Runs on the CUDA card unless
     `device="cpu"` is given."""
-    dev = resolve_device(device)
-    coords = _pack_points(points, dev)
-    n = coords.shape[0]
-    packed = [_pack_scalar_words(sc, dev) for sc in scalars_list]
-    if any(sc.shape[0] != n for sc in packed):
-        raise ValueError(f"{n} points but scalar vectors of {[sc.shape[0] for sc in packed]}")
-    if not packed:
+    coords, scs = _pack_batch(points, scalars_list, resolve_device(device))
+    if not scs:
         return []
-    scs = list(reduce_scalars_mod_order(torch.cat(packed)).split(n))
+    n = coords.shape[0]
     cfg = _config(n, chunk_size)
     if n < 512 or cfg.chunk_size < 8:
         return [_small_path_msm(coords, sc, cfg) for sc in scs]
-    target = _pad_target(n)
-    if target != n:
-        coords = _pad_points(coords, target - n)
-        scs = [_pad_zero_scalars(sc, target - n) for sc in scs]
-    rows_list = MP.msm_window_sums_batch(coords, scs, cfg, fold=True)
+    rows_list = MP.msm_window_sums_batch(*_pad_batch(coords, scs), cfg, fold=True)
     return [_affine_result(rows) for rows in rows_list]
+
+
+def _pack_batch(points, scalars_list, device: torch.device):
+    """(points [n, 2, 8], the scalar vectors [n, 8] each) as int32 tensors
+    on `device`, all the vectors reduced mod the subgroup order by one
+    compare."""
+    coords = _pack_points(points, device)
+    n = coords.shape[0]
+    packed = [_pack_scalar_words(sc, device) for sc in scalars_list]
+    if any(sc.shape[0] != n for sc in packed):
+        raise ValueError(f"{n} points but scalar vectors of {[sc.shape[0] for sc in packed]}")
+    if not packed:
+        return coords, []
+    return coords, list(reduce_scalars_mod_order(torch.cat(packed)).split(n))
+
+
+def _pad_batch(coords: torch.Tensor, scs: list[torch.Tensor]):
+    """The points and every scalar vector padded to the bucket pipeline's
+    multiple of 4096 (copies of point 0, zero scalars)."""
+    n = coords.shape[0]
+    target = _pad_target(n)
+    if target == n:
+        return coords, scs
+    return _pad_points(coords, target - n), [_pad_zero_scalars(sc, target - n) for sc in scs]
 
 
 def _affine_result(rows: torch.Tensor) -> dict[str, int]:

@@ -13,6 +13,7 @@ then zero words.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -57,14 +58,25 @@ def pt_identity(b: int, c: Consts) -> Pt:
     return Pt(zero, r, zero, r)
 
 
-def identity_row(device=None) -> torch.Tensor:
-    """The packed (0 : R : 0 : R) identity as one [TW] int32 row."""
+@lru_cache(maxsize=None)
+def _identity_row_on(device: torch.device) -> torch.Tensor:
     r = int_to_limbs(PARAMS.r).astype(np.int64)
     packed_r = torch.from_numpy(r[0::2] | (r[1::2] << 16))
     row = torch.zeros(TW, dtype=torch.int64)
     row[LP:2 * LP] = packed_r
     row[3 * LP:4 * LP] = packed_r
-    return to_i32(row).to(device or "cpu")
+    return to_i32(row).to(device)
+
+
+def identity_row(device=None) -> torch.Tensor:
+    """The packed (0 : R : 0 : R) identity as one [TW] int32 row.  A copy on
+    the device of the row kept there at the first call: a copy from host
+    memory would wait for the device's stream (a host sync in every window
+    group, which would serialize the shards of a multi-card MSM)."""
+    device = torch.device(device or "cpu")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _identity_row_on(device).clone()
 
 
 def pt_select(mask: torch.Tensor, a: Pt, b: Pt) -> Pt:
