@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
    operations are inlined (INLINED: the carry scan, bpr_stage1, bpr_stage2,
    the Horner fold, the masked add, the per-window reduce, the quarter-store
    extraction, the repeated doubling, the table conversion, the
-   normalization; a frame or a call fails);
+   normalization, and every instantiation of the probes' two scan
+   templates; a frame or a call fails);
 3. the main path: compute_msm at 2^16 points (c=13) and at 2^20 points
    (c=16) on inputs resident on the card (points from the native oracle's
    generator, scalars from a seeded numpy generator): kernel launch counts
@@ -130,8 +131,8 @@ PEAK_IMAD_PER_S = 67e12 / 4
 #: is 190 IMAD.WIDE.U32 (100 x_i*y_j and 90 q*p_j; p's low digit is 1 and
 #: the quotient digit is a negation), each counted as two 32-bit
 #: multiply-adds; phase 2 prints the count in the compiled scan.  (The
-#: 13-bit product of csrc/field.cuh, which the probes' scans keep, is
-#: 20 * 42 = 840.)  A squaring needs only 55 of the 100 digit products
+#: 13-bit product of csrc/field.cuh, which the fused-gather probe's scans
+#: keep, is 20 * 42 = 840.)  A squaring needs only 55 of the 100 digit products
 #: (x_i*x_j once for i < j, then doubled) for the same column sums, so its
 #: least work is 2 * (55 + 90); a doubling's 8 products are 4 squarings.
 MONT = 2 * 190
@@ -175,33 +176,46 @@ def ptxas_function(lib: str, part: str) -> str:
     return names[0]
 
 
-#: (library, kernel) of the kernels whose point or field operations are
-#: inlined (csrc/ec26.cuh, csrc/field26.cuh): no stack frame and no call, or
-#: phase 2 fails.
-INLINED = (("scan", "ab_scan_kernel"), ("bpr", "bpr_stage1_kernel"), ("bpr", "bpr_stage2_kernel"),
-           ("bpr", "horner_kernel"), ("ec", "masked_add_kernel"), ("ec", "reduce_rows_kernel"),
-           ("ec", "extract_reconstruct_kernel"), ("ec", "double_rows_kernel"),
-           ("convert", "convert_kernel"), ("precompute", "normalize_kernel"))
+#: (library, kernel, instantiations) of the kernels whose point or field
+#: operations are inlined (csrc/ec26.cuh, csrc/field26.cuh): every function
+#: of the library whose name holds `kernel` (a template's instantiations) has
+#: no stack frame and no call, and there are `instantiations` of them, or
+#: phase 2 fails.  The probes' templates: probe_scan_kernel's out64, out128
+#: and five floor variants and scan_dual_kernel's dual, dualf and pret+dual
+#: (csrc/probe_scan.cu), probe_scan_kernel's prefetching scan
+#: (csrc/probe_move.cu).
+INLINED = (("scan", "ab_scan_kernel", 1), ("bpr", "bpr_stage1_kernel", 1),
+           ("bpr", "bpr_stage2_kernel", 1), ("bpr", "horner_kernel", 1),
+           ("ec", "masked_add_kernel", 1), ("ec", "reduce_rows_kernel", 1),
+           ("ec", "extract_reconstruct_kernel", 1), ("ec", "double_rows_kernel", 1),
+           ("convert", "convert_kernel", 1), ("precompute", "normalize_kernel", 1),
+           ("probe_scan", "probe_scan_kernel", 7), ("probe_scan", "scan_dual_kernel", 3),
+           ("probe_move", "probe_scan_kernel", 1))
 #: masked_add launches of one MSM at 2^16 and 2^20 points and in the fixed
 #: base (one entry block): the bucket extraction and the carry scan's two
 #: carry applies; the per-window reduce after BPR is one reduce_rows launch.
 MASKED_ADD_LAUNCHES = 3
 
 
-def check_inlined(lib: str, kernel: str) -> None:
-    """Log a kernel's ptxas line (registers, frame, spills) and its calls in
-    SASS; raise if it has a stack frame or a call, or if cuobjdump cannot
-    show that it has none."""
+def check_inlined(lib: str, kernel: str, instantiations: int) -> None:
+    """Log the ptxas line (registers, frame, spills) and the calls in SASS of
+    every function of `lib` whose name holds `kernel`; raise unless there are
+    `instantiations` of them, or if one has a stack frame or a call, or if
+    cuobjdump cannot show that it has none."""
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
 
-    fn = ptxas_function(lib, kernel)
-    line = next(ln for ln in _build.ptxas_report()[lib] if ln.startswith(fn))
-    frame = int(re.search(r": (\d+) bytes stack frame", line).group(1))
-    calls = sass_count(lib, fn, "CALL.REL.NOINC")
-    log(f"{kernel}: {line.split(': ', 1)[1]}; "
-        f"{'calls not counted' if calls is None else f'{calls} calls'}")
-    if frame or calls is None or calls:
-        raise AssertionError(f"{kernel} has a stack frame or calls: {line}, {calls}")
+    lines = [ln for ln in _build.ptxas_report()[lib] if kernel in ln.split(":")[0]]
+    if len(lines) != instantiations:
+        raise AssertionError(f"{lib}: {len(lines)} functions named like {kernel}, expected "
+                             f"{instantiations}: {lines}")
+    for line in lines:
+        fn = line.split(":")[0]
+        frame = int(re.search(r": (\d+) bytes stack frame", line).group(1))
+        calls = sass_count(lib, fn, "CALL.REL.NOINC")
+        log(f"{kernel if instantiations == 1 else fn}: {line.split(': ', 1)[1]}; "
+            f"{'calls not counted' if calls is None else f'{calls} calls'}")
+        if frame or calls is None or calls:
+            raise AssertionError(f"{fn} has a stack frame or calls: {line}, {calls}")
 
 
 @contextlib.contextmanager
@@ -1451,8 +1465,8 @@ def main() -> int:
     wide = sass_count("scan", scan_fn, "IMAD.WIDE.U32")
     log(f"sass scan (msm_scan_fused): {wide} IMAD.WIDE.U32, "
         f"{'not counted' if wide is None else round(wide / 7, 1)} a product; MONT = {MONT}")
-    for lib, kernel in INLINED:
-        check_inlined(lib, kernel)
+    for lib, kernel, instantiations in INLINED:
+        check_inlined(lib, kernel, instantiations)
     main_specs, fixed_specs, variant_specs = kernel_specs()
 
     e2e = {}

@@ -733,21 +733,28 @@ def _probe_scan_inputs(seed, dev, nf=300):
     return rng, rows, keys, S.keys_to_sames(keys), _rand(rng, (S.K, nf), 2, dev)
 
 
+#: Fragments of the probe scan tests: 300 leaves the last warp with 12 lanes
+#: (20 recompute fragment nf - 1 and store nothing), 20 is one part warp.
+PROBE_NF = [300, 20]
+
+
+@pytest.mark.parametrize("nf", PROBE_NF)
 @pytest.mark.parametrize("store", [1, 2])
-def test_probe_scan_out(dev, store):
+def test_probe_scan_out(dev, store, nf):
     from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_out_probe as OP
 
-    _, rows, keys, _, sgn = _probe_scan_inputs(30, dev)
+    _, rows, keys, _, sgn = _probe_scan_inputs(30, dev, nf)
     assert _same(OP.scan_out(rows, keys, sgn, store), OP.scan_out_plain(rows, keys, sgn, store))
 
 
+@pytest.mark.parametrize("nf", PROBE_NF)
 @pytest.mark.parametrize("name", ["control", "nosel", "nowrite", "hoistread", "floor"])
-def test_probe_scan_floor_variants(dev, name):
+def test_probe_scan_floor_variants(dev, name, nf):
     """The control and each ablation on the outputs it writes (pair 31 of
     nowrite and floor)."""
     from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_floor_probe as FP
 
-    _, rows, _, sames, _ = _probe_scan_inputs(31, dev)
+    _, rows, _, sames, _ = _probe_scan_inputs(31, dev, nf)
     flags = FP.VARIANTS[name]
     _build.reset_launch_counts()
     got = FP.variant(rows, sames, *flags, control=name == "control")
@@ -756,14 +763,17 @@ def test_probe_scan_floor_variants(dev, name):
                                                        flags[1]))
 
 
+@pytest.mark.parametrize("nf,lblk", [(512, 64), (300, 20), (40, 8)])
 @pytest.mark.parametrize("fuse,pret", [(False, False), (True, False), (False, True)],
                          ids=["dual", "dualf", "pret_dual"])
-def test_probe_scan_dual(dev, fuse, pret):
+def test_probe_scan_dual(dev, fuse, pret, nf, lblk):
+    """Thread f scans fragments f and f + nf/2: at nf = 300 the last warp has
+    22 such pairs, at 40 one part warp has 20."""
     from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_tune_probe as TP
 
-    _, rows, keys, _, _ = _probe_scan_inputs(32, dev, nf=512)
+    _, rows, keys, _, _ = _probe_scan_inputs(32, dev, nf)
     if pret:
-        rows = TP.pre_transpose(rows, 64)
+        rows = TP.pre_transpose(rows, lblk)
     got = TP.msm_scan_dual(rows, keys, fuse=fuse, pret=pret)
     assert _same(got, TP.msm_scan_dual_plain(rows, keys, fuse=fuse, pret=pret))
 
@@ -781,15 +791,16 @@ def test_probe_bulk_gather(dev):
     assert _same(got, G.row_gather(table, pidx_t))
 
 
-def test_probe_scan_dma(dev):
+@pytest.mark.parametrize("nf", PROBE_NF)
+def test_probe_scan_dma(dev, nf):
     from webgpu_msm_twisted_edwards_tpu_torch.experiments import dma_gather_probe as DP
 
-    rng, _, _, sames, _ = _probe_scan_inputs(34, dev)
+    rng, _, _, sames, _ = _probe_scan_inputs(34, dev, nf)
     table = _rand(rng, (4096, S.TWR), 1 << 13, dev)
-    pidx_t = _rand(rng, (S.K, 300), 4096, dev)
+    pidx_t = _rand(rng, (S.K, nf), 4096, dev)
     got = DP.msm_scan_dma(table, pidx_t, sames)
     assert _same(got, DP.msm_scan_dma_plain(table, pidx_t, sames))
-    rows = G.row_gather(table, pidx_t).reshape(300, S.K, S.TWR)
+    rows = G.row_gather(table, pidx_t).reshape(nf, S.K, S.TWR)
     assert _same(got, S.msm_scan_rm_sames(rows, sames))
 
 

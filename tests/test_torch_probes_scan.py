@@ -11,6 +11,7 @@ must follow the JAX package's u32 arithmetic there too.
 """
 
 import os
+import re
 import sys
 
 import jax.numpy as jnp
@@ -161,3 +162,21 @@ def test_main_without_a_card_raises(monkeypatch, probe):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe.main([])
+
+
+@pytest.mark.parametrize("name", ["probe_scan.cuh", "probe_scan.cu"])
+def test_probe_scan_header_runs_only_the_inlined_formulas(name):
+    """The probes' two scan templates (csrc/probe_scan.cuh, instantiated by
+    csrc/probe_scan.cu) run the inlined 26-bit madd26 of csrc/ec26.cuh:
+    neither file includes csrc/ec.cuh nor calls its 13-bit madd (a call
+    through a stack frame) or a 13-bit madd2, so an instantiation cannot
+    fall back to one.  The card checks each instantiation's frame and calls
+    (chip_smoke.py::INLINED)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "webgpu_msm_twisted_edwards_tpu_torch", "csrc", name)
+    with open(path) as f:
+        code = re.sub(r"//[^\n]*", "", f.read())
+    assert "ec.cuh" not in re.findall(r'#include\s+"([^"]+)"', code)
+    assert not re.search(r"\bmadd2?\s*\(", code)
+    if name.endswith(".cuh"):
+        assert re.search(r"\bmadd26\s*\(", code)

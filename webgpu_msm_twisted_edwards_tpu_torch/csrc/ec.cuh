@@ -1,5 +1,6 @@
 // Extended twisted Edwards point arithmetic (a = -1) in the 13-bit limbs of
-// csrc/field.cuh, one point per thread, for the probes' scans.
+// csrc/field.cuh, one point per thread, for the fused-gather probe's scans
+// (csrc/probe_move.cu).
 //
 // Device counterpart of webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py's
 // rotated hwcd madd (7 products), with the same lazy products and the same
@@ -71,10 +72,11 @@ __device__ __forceinline__ void load_cached(const uint32_t* row, Fe& d2, Fe& s2,
 // madd is a real call (__noinline__): with the 13-bit formulas inlined into
 // loop kernels, nvcc's front end (cicc, CUDA 12.8) dies with a segmentation
 // fault.  Its arguments and result then pass through the stack frame (local
-// memory, cached in L1).  Only the probes' scans (probe_scan.cuh) still call
-// it; every kernel of the MSM and the precompute runs the 26-bit formulas of
-// ec26.cuh (madd26, full_add26, pt_double26 and their four-lane forms),
-// which inline.
+// memory, cached in L1).  Only the fused-gather probe's scans
+// (csrc/probe_move.cu: gather_scan and gather_fused) still call it; every
+// kernel of the MSM and the precompute, and the other probes' scans
+// (csrc/probe_scan.cuh), run the 26-bit formulas of ec26.cuh (madd26,
+// full_add26, pt_double26 and their four-lane forms), which inline.
 
 // ec.py::madd — p1 + a table point in cached form (d2 = y2-x2, s2 = y2+x2,
 // td2 = 2*d*t2, affine with Z = R).  Accumulator coordinates < 1.3p, table

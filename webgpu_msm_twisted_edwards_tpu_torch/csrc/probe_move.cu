@@ -5,6 +5,7 @@
 
 #include <cstdint>
 
+#include "ec.cuh"
 #include "probe_scan.cuh"
 
 namespace msm {
@@ -97,7 +98,10 @@ bulk_gather_kernel(const uint32_t* __restrict__ table, const int32_t* __restrict
 // distinct banks), double-buffered: the block's warp issues the 16-byte
 // cp.async copies of stage s+1 into one buffer, waits for stage s's in the
 // other (cp.async.wait_group 1, then a barrier), and scans stage s while the
-// copies of s+1 are in flight (2 x 4 x 32 x 272 B = 68 KB a block).
+// copies of s+1 are in flight (2 x 4 x 32 x 272 B = 68 KB a block).  The
+// scan phase still calls the 13-bit madd of csrc/ec.cuh through a stack
+// frame: these two scans are its last callers, not yet moved to the inlined
+// madd26 of the other probes' scans.
 
 constexpr int FG_FRAGS = 32;
 constexpr int FG_STEPS = 4;
@@ -132,6 +136,19 @@ __device__ __forceinline__ void fg_issue(const uint32_t* table, const int32_t* p
                    table + (long long)row * MSM_TWR + 4 * q);
     }
   }
+}
+
+// scan_out_probe.py's step in the 13-bit limbs of csrc/field.cuh: the key
+// compare, and y-x and 2*d*t of the row negated where sgn_t is set.
+__device__ __forceinline__ bool fg_step_same(const int32_t* keys_t, const int32_t* sgn_t,
+                                             long long e, int& kprev, Fe& d2, Fe& td2) {
+  if (sgn_t[e] != 0) {
+    d2 = fr_neg_lazy(d2);
+    td2 = fr_neg_lazy(td2);
+  }
+  const bool same = keys_t[e] == kprev;
+  kprev = keys_t[e];
+  return same;
 }
 
 template <bool COPY, bool SCAN>
@@ -182,9 +199,9 @@ fused_gather_kernel(const uint32_t* __restrict__ table, const int32_t* __restric
           load_cached(COPY ? buf + (s * FG_FRAGS + t) * FG_ROW
                            : staged + ((long long)j * nf + f) * MSM_TWR,
                       d2, s2, td2);
-          const bool same = step_mask<MASK_KEYS_SGN>(keys_t, sgn_t, j * nf + f, kprev, d2, s2, td2);
+          const bool same = fg_step_same(keys_t, sgn_t, j * nf + f, kprev, d2, td2);
           acc = madd(pt_select(same, acc, ident), d2, s2, td2);
-          store_step<1>(dst, j, acc);
+          pt_store(dst + j * MSM_TW, acc);
         }
       }
     }

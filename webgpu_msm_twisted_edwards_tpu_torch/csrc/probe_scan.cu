@@ -26,7 +26,8 @@ extern "C" int msm_probe_scan_out128(const void* rows, const void* keys_t, const
 }
 
 // experiments/scan_tune_probe.py::_kern_dual (msm_scan_dual): keys
-// compared, thread f scans fragments f and f + nf/2; out: [nf, 32, 128] u32,
+// compared, thread f scans fragments f and f + nf/2 (two madd26 a step, or
+// the G8 formula for both in dualf); out: [nf, 32, 128] u32,
 // the concatenation of the probe's two outputs.  rows: [nf, 64, 128] u32
 // (dual, dualf) or the limb-major [nf/lblk, 64, 64, lblk] (pret_dual).
 extern "C" int msm_probe_scan_dual(const void* rows, const void* keys_t, void* out, long long nf,
@@ -52,14 +53,14 @@ extern "C" int msm_probe_scan_pret_dual(const void* rows_t, const void* keys_t, 
 // step stored) without the segment select (nosel), storing only pair 31
 // (nowrite), reading step 0's rows at every step (hoistread), or all three
 // (floor); and control, the same kernel with no ablation, against which the
-// ablations are measured.  All at the occupancy of msm_scan_rm_sames (3
-// blocks a SM).  rows: [nf, 64, 128] u32; sames_t: [64, nf] i32; out:
-// [nf, 32, 128] u32.
+// ablations are measured.  All at msm_scan_rm_sames's launch geometry and
+// register bound (SCAN_THREADS, SCAN_MIN_BLOCKS).  rows: [nf, 64, 128] u32;
+// sames_t: [64, nf] i32; out: [nf, 32, 128] u32.
 template <int OPT>
 static int floor_variant(const void* rows, const void* sames_t, void* out, long long nf,
                          void* stream) {
-  return launch_probe_scan<ROWS_RM, MASK_SAMES, 2, OPT_OCC3 | OPT>(rows, nullptr, sames_t,
-                                                                   nullptr, out, nf, 1, stream);
+  return launch_probe_scan<ROWS_RM, MASK_SAMES, 2, OPT>(rows, nullptr, sames_t, nullptr, out,
+                                                        nf, 1, stream);
 }
 
 extern "C" int msm_probe_scan_control(const void* rows, const void* sames_t, void* out,

@@ -5,9 +5,11 @@ Port of experiments/scan_floor_probe.py.  The main path's scan,
 msm_scan_rm_sames (row-major rows, hoisted same bits, every step stored;
 csrc/scan.cu), and its ablations.  The ablations are instantiations of the
 probes' copy of that scan (probe_scan_kernel, csrc/probe_scan.cuh and
-csrc/probe_scan.cu), held at the main scan's occupancy; control is that copy
-with no ablation, so each ablation's saving is taken against control, and
-full - control is what the copy itself differs by:
+csrc/probe_scan.cu: the same inlined 26-bit madd, row loads and warp-staged
+stores), held at the main scan's occupancy (its launch geometry and register
+bound); control is that copy with no ablation, so each ablation's saving is
+taken against control, and full - control is what the copy itself differs
+by:
 
   full      : msm_scan_rm_sames itself.
   control   : the probes' copy of it, no ablation (same output).

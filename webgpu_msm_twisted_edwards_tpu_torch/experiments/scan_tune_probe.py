@@ -6,11 +6,13 @@ the pipeline (msm_scan, row-major rows):
   pret   : the rows in the limb-major [NF/lblk, K, 64, lblk] layout
            (msm_scan_pret, csrc/scan_variants.cu), after a torch permute
            (pre_transpose, timed alone).
-  dual   : each thread scans two fragments, f and f + NF/2, with two madd
-           calls a step (csrc/probe_scan.cu).
-  dualf  : the same with both madds in one call that interleaves their
-           products: the JAX probe's G8 form, whose formula (8 products, not
-           madd's 7) gives other representatives than msm_scan's.
+  dual   : each thread scans two fragments, f and f + NF/2, with two
+           inlined madds a step (csrc/probe_scan.cu).
+  dualf  : the same with the JAX probe's G8 form for both fragments, one
+           add after the other (the JAX probe's fuse interleaves the two
+           fragments' products; this kernel does not): its formula (8
+           products, not madd's 7) gives other representatives than
+           msm_scan's.
   pret+dual, and pret+sames (msm_scan_sames, the hoisted same bits).
 
 With --check every output is held against msm_scan's (dualf against its
@@ -128,8 +130,8 @@ def main(argv=None) -> dict:
     print(f"{'torch pre-transpose alone':26s} run {ms['pre-transpose']:8.3f} ms", flush=True)
     rows_t = pre_transpose(rows, lblk)
     run("pret", lambda: msm_scan_pret(rows_t, keys))
-    run("dual (2 madd calls)", lambda: msm_scan_dual(rows, keys))
-    run("dualf (G8 madd2)", lambda: msm_scan_dual(rows, keys, fuse=True),
+    run("dual (2 madds)", lambda: msm_scan_dual(rows, keys))
+    run("dualf (G8, both)", lambda: msm_scan_dual(rows, keys, fuse=True),
         torch.cat(msm_scan_dual_plain(rows, keys, fuse=True)) if args.check else None)
     run("pret+dual", lambda: msm_scan_dual(rows_t, keys, pret=True))
     sames = keys_to_sames(keys)
