@@ -12,8 +12,9 @@ Phases (any failure raises and exits non-zero):
    operations are inlined (INLINED: the carry scan, bpr_stage1, bpr_stage2,
    the Horner fold, the masked add, the per-window reduce, the quarter-store
    extraction, the repeated doubling, the table conversion, the
-   normalization, and every instantiation of the probes' two scan
-   templates; a frame or a call fails);
+   normalization, every instantiation of the probes' two scan templates and
+   of the fused-gather probe's kernel, and the row gather's copies and its
+   partition's three kernels; a frame or a call fails);
 3. the main path: compute_msm at 2^16 points (c=13) and at 2^20 points
    (c=16) on inputs resident on the card (points from the native oracle's
    generator, scalars from a seeded numpy generator): kernel launch counts
@@ -49,7 +50,9 @@ Phases (any failure raises and exits non-zero):
    against msm_scan_table_sames with the same-bit pass it needs, on the
    indices where they lie and on a contiguous copy; and the ten kernels of
    these configurations replayed as in 4 (extract_reconstruct in chunks of
-   PLAIN_ROWS rows; the gather kernel on the quarter store's call; the four
+   PLAIN_ROWS rows; the row gather, its partition and copy timed as one
+   call, on the quarter store's call, where a launch counts a call of a C
+   entry (the partition's runs three kernels, then the copy: 2); the four
    scans that no configuration runs: msm_scan_table_sames on the fused
    call's inputs, the scans of gathered rows on the rows of the
    quarter-store run, with its same bits or the keys of the pret run with
@@ -60,7 +63,8 @@ Phases (any failure raises and exits non-zero):
    shape, its launch counts from zero, then each of its kernels replayed on
    the inputs of its largest call as in 4, on the part of the output that
    it writes (the ablations that store one pair, copy-only's first step,
-   the partition's full tiles);
+   the partition's full tiles), copy-only's library call timed both on that
+   output and, as library_staging_ms, on all the rows it stages;
 9. the small-input path: compute_msm at each of SMALL_CASES (511 and 4095
    points at the sizing rule's c=4, 4096 points at c=6) on the benchmark
    inputs, launch counts from zero (no kernel may launch), one warm and
@@ -130,9 +134,8 @@ PEAK_IMAD_PER_S = 67e12 / 4
 #: the port issues: the scans' product in 26-bit digits (csrc/field26.cuh)
 #: is 190 IMAD.WIDE.U32 (100 x_i*y_j and 90 q*p_j; p's low digit is 1 and
 #: the quotient digit is a negation), each counted as two 32-bit
-#: multiply-adds; phase 2 prints the count in the compiled scan.  (The
-#: 13-bit product of csrc/field.cuh, which the fused-gather probe's scans
-#: keep, is 20 * 42 = 840.)  A squaring needs only 55 of the 100 digit products
+#: multiply-adds; phase 2 prints the count in the compiled scan.  A
+#: squaring needs only 55 of the 100 digit products
 #: (x_i*x_j once for i < j, then doubled) for the same column sums, so its
 #: least work is 2 * (55 + 90); a doubling's 8 products are 4 squarings.
 MONT = 2 * 190
@@ -182,15 +185,19 @@ def ptxas_function(lib: str, part: str) -> str:
 #: no stack frame and no call, and there are `instantiations` of them, or
 #: phase 2 fails.  The probes' templates: probe_scan_kernel's out64, out128
 #: and five floor variants and scan_dual_kernel's dual, dualf and pret+dual
-#: (csrc/probe_scan.cu), probe_scan_kernel's prefetching scan
-#: (csrc/probe_move.cu).
+#: (csrc/probe_scan.cu), probe_scan_kernel's prefetching scan and
+#: fused_gather_kernel's copy-only, scan-only and fused (csrc/probe_move.cu).
+#: The row gather's copy (four widths, two orders) and its partition's three
+#: kernels divide in 32 bits, so they too have no call.
 INLINED = (("scan", "ab_scan_kernel", 1), ("bpr", "bpr_stage1_kernel", 1),
            ("bpr", "bpr_stage2_kernel", 1), ("bpr", "horner_kernel", 1),
            ("ec", "masked_add_kernel", 1), ("ec", "reduce_rows_kernel", 1),
            ("ec", "extract_reconstruct_kernel", 1), ("ec", "double_rows_kernel", 1),
            ("convert", "convert_kernel", 1), ("precompute", "normalize_kernel", 1),
            ("probe_scan", "probe_scan_kernel", 7), ("probe_scan", "scan_dual_kernel", 3),
-           ("probe_move", "probe_scan_kernel", 1))
+           ("probe_move", "probe_scan_kernel", 1), ("probe_move", "fused_gather_kernel", 3),
+           ("gather", "row_gather_kernel", 8), ("gather", "rg_count_kernel", 1),
+           ("gather", "rg_offsets_kernel", 1), ("gather", "rg_place_kernel", 1))
 #: masked_add launches of one MSM at 2^16 and 2^20 points and in the fixed
 #: base (one entry block): the bucket extraction and the carry scan's two
 #: carry applies; the per-window reduce after BPR is one reduce_rows launch.
@@ -698,8 +705,10 @@ class Spec(NamedTuple):
     version and that version, the source, the TPU kernel it replaces (body
     line, or a probe's pallas_call line), the library call (or None), the
     rows of each call of the plain version (None: one call on the whole
-    input), its capture and launch key (None: the name), and the part of its
-    output that it writes (None: all of it)."""
+    input), its capture and launch key (None: the name), the part of its
+    output that it writes (None: all of it), and a library call of the work
+    the kernel does beyond that part (None: none), timed as
+    library_staging_ms."""
 
     name: str
     timed: Callable
@@ -711,6 +720,7 @@ class Spec(NamedTuple):
     chunk: int | None = None
     key: str | None = None
     region: Callable | None = None
+    staging: Callable | None = None
 
 
 def kernel_specs() -> tuple[list, list, list]:
@@ -854,6 +864,7 @@ def kernels_phase(specs: list, captures: dict, launches: dict) -> list[dict]:
         out = timed(*args)
         ms = time_kernel(lambda: timed(*args))
         library_ms = time_kernel(spec.library(*args)) if spec.library else None
+        staging = {"library_staging_ms": time_kernel(spec.staging(*args))} if spec.staging else {}
         if spec.region:
             out = tuple(spec.region(o, args) for o in (out if isinstance(out, tuple) else (out,)))
         moved, imads = work(key, args, out)
@@ -867,7 +878,7 @@ def kernels_phase(specs: list, captures: dict, launches: dict) -> list[dict]:
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-            "library_ms": library_ms, "shapes": str(shapes),
+            "library_ms": library_ms, **staging, "shapes": str(shapes),
             "plain_calls": -(-n // step),
         })
         log(f"kernel {name}: match, {ms:.4f} ms (plain {plain_ms:.1f} ms in "
@@ -890,9 +901,9 @@ def probe_specs() -> dict[str, list]:
     from webgpu_msm_twisted_edwards_tpu_torch.experiments import scan_tune_probe as TP
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import scan as S
 
-    def spec(name, wrapper, plain, src, site, key=None, region=None, library=None):
+    def spec(name, wrapper, plain, src, site, key=None, region=None, library=None, staging=None):
         return Spec(name, wrapper, wrapper, plain, src, "experiments/" + site, library, None, key,
-                    region)
+                    region, staging)
 
     def floor(v):
         flags = FP.VARIANTS[v]
@@ -931,8 +942,14 @@ def probe_specs() -> dict[str, list]:
             spec("scan_dma", DP.msm_scan_dma, DP.msm_scan_dma_plain, "probe_move.cu",
                  "dma_gather_probe.py:193")],
         "fused_gather_probe": [
+            # The library call computes the output held against the plain
+            # version, the first 64 words of the step-0 rows; the staging
+            # call moves those words of all K*NF rows that the kernel stages,
+            # the work it does.
             spec("gather_copy", GP.gather_copy, GP.gather_copy_plain, "probe_move.cu",
-                 "fused_gather_probe.py:100", region=lambda o, a: o[:, 0]),
+                 "fused_gather_probe.py:100", region=lambda o, a: o[:, 0],
+                 library=lambda table, pidx_t: lib_gather(table[:, :64], pidx_t[:1]),
+                 staging=lambda table, pidx_t: lib_gather(table[:, :64], pidx_t)),
             spec("gather_scan", GP.gather_scan, GP.gather_scan_plain, "probe_move.cu",
                  "fused_gather_probe.py:100"),
             spec("gather_fused", GP.gather_fused, GP.gather_fused_plain, "probe_move.cu",

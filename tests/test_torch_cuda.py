@@ -108,12 +108,62 @@ def test_hist(dev, nb, case):
         assert _same(H.bucket_counts(k.T.contiguous().T, nb), want), wg
 
 
-def test_gather(dev):
+#: (table rows, row width, fragments, how the rows are named) of the row
+#: gather's cases.  A call with more entries (64 a fragment) than
+#: PARTITION_ENTRIES_PER_ROW a table row takes the partition by tile and the
+#: copy in its order, else the copy in entry order: "random" at 512 rows is
+#: the first; widths 64, 128 and 256 (the extraction gathers' carry, stored
+#: and pair rows) and 12 (a width of no specialized copy) on both; two
+#: entries a row (the carry gather's share at 2^20 points), the most that
+#: copies in entry order; every entry naming one row; more entries than one
+#: partition block holds, not a multiple of it nor of a warp, over a table
+#: that is not a whole number of tiles; a table of more than MAX_TILES tiles
+#: of TILE_LOG2 rows; zero fragments.
+GATHER_CASES = {
+    "random": (512, 128, 256, "random"),
+    "w64 partitioned": (3000, 64, 300, "random"),
+    "w64 direct": (30000, 64, 300, "random"),
+    "w64 two entries a row": (9600, 64, 300, "random"),
+    "w256 partitioned": (1000, 256, 40, "random"),
+    "w256 direct": (4000, 256, 40, "random"),
+    "w12 partitioned": (700, 12, 50, "random"),
+    "w12 direct": (7000, 12, 50, "random"),
+    "one row": (512, 128, 256, "one row"),
+    "one row direct": (1 << 15, 128, 256, "one row"),
+    "blocks and tiles": (20000 + 5, 128, 2500 + 3, "random"),
+    "wide table": ((G.MAX_TILES << G.TILE_LOG2) + 3, 4,
+                   G.PARTITION_ENTRIES_PER_ROW * (G.MAX_TILES << G.TILE_LOG2) // 64 + 9, "random"),
+    "zero fragments": (512, 128, 0, "random"),
+}
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather(dev, case):
+    nt, w, nf, kind = GATHER_CASES[case]
     rng = np.random.default_rng(3)
-    table = torch.from_numpy(rng.integers(-2**31, 2**31, size=(512, 128), dtype=np.int64)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31, size=(nt, w), dtype=np.int64)
                              .astype(np.int32)).to(dev)
-    pidx_t = torch.from_numpy(rng.integers(0, 512, size=(64, 256)).astype(np.int32)).to(dev)
-    assert _same(G.row_gather(table, pidx_t), G.row_gather_plain(table, pidx_t))
+    pidx = rng.integers(0, nt, size=(64, nf)) if kind == "random" else np.full((64, nf), nt // 3)
+    pidx_t = torch.from_numpy(pidx.astype(np.int32)).to(dev)
+    _build.reset_launch_counts()
+    got = G.row_gather(table, pidx_t)
+    assert _build.launches["gather"] == (2 if 64 * nf > G.PARTITION_ENTRIES_PER_ROW * nt else 1)
+    assert _same(got, G.row_gather_plain(table, pidx_t))
+
+
+@pytest.mark.parametrize("case", ["random", "one row", "blocks and tiles", "wide table"])
+def test_gather_order(dev, case):
+    """The partition: every entry once with its table row, tiles in
+    non-decreasing order; the same pairs as its plain version, whose order
+    within a tile may differ (the kernel's is that of its atomics)."""
+    nt, _, nf, kind = GATHER_CASES[case]
+    rng = np.random.default_rng(4)
+    pidx = rng.integers(0, nt, size=(64, nf)) if kind == "random" else np.full((64, nf), nt // 3)
+    pidx_t = torch.from_numpy(pidx.astype(np.int32)).to(dev)
+    got = G.gather_order(pidx_t, nt).to(torch.int64)
+    want = G.gather_order_plain(pidx_t, nt).to(torch.int64)
+    assert (torch.diff(got[:, 1] >> G.tile_log2(nt)) >= 0).all()
+    assert torch.equal(got[got[:, 0].argsort()], want[want[:, 0].argsort()])
 
 
 def _near_p_coords(rng, n, dev):
@@ -804,14 +854,16 @@ def test_probe_scan_dma(dev, nf):
     assert _same(got, S.msm_scan_rm_sames(rows, sames))
 
 
-def test_probe_fused_gather(dev):
+@pytest.mark.parametrize("nf", [300, 37])
+def test_probe_fused_gather(dev, nf):
     """Copy-only on the rows it writes, scan-only and fused on everything;
-    300 fragments leave the last block of 32 partly empty."""
+    300 and 37 fragments leave the last block of 32 partly empty (37: its
+    quads past nf in all four warps)."""
     from webgpu_msm_twisted_edwards_tpu_torch.experiments import fused_gather_probe as GP
 
-    rng, _, keys, _, sgn = _probe_scan_inputs(35, dev)
+    rng, _, keys, _, sgn = _probe_scan_inputs(35, dev, nf)
     table = _rand(rng, (2048, S.TWR), 1 << 13, dev)
-    pidx_t = _rand(rng, (S.K, 300), 2048, dev)
+    pidx_t = _rand(rng, (S.K, nf), 2048, dev)
     assert _same(GP.gather_copy(table, pidx_t)[:, 0], GP.gather_copy_plain(table, pidx_t)[:, 0])
     fused = GP.gather_fused(table, pidx_t, keys, sgn)
     assert _same(fused, GP.gather_fused_plain(table, pidx_t, keys, sgn))

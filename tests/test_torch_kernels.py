@@ -111,6 +111,29 @@ def test_row_gather(table):
     _eq(want, G.row_gather(from_numpy_u32(table), torch.from_numpy(pidx_t)))
 
 
+def test_gather_order_is_a_tile_ordered_permutation(monkeypatch):
+    """The partition's plain version (the order in which the row gather
+    copies when a call has more entries than table rows): every entry once,
+    tiles of table rows in non-decreasing order, and copying in that order
+    gives table[pidx]; tiles of 2^6 rows, so 79 of them; a table of more
+    than MAX_TILES tiles takes larger ones."""
+    monkeypatch.setattr(G, "TILE_LOG2", 6)
+    rng = np.random.default_rng(37)
+    nt, nf = 5000, 300
+    table = rng.integers(0, 1 << 31, size=(nt, 12), dtype=np.int64).astype(np.int32)
+    pidx_t = rng.integers(0, nt, size=(S.K, nf)).astype(np.int32)
+    pidx_t[:, ::7] = 4321                                   # one hot row
+    order = G.gather_order(torch.from_numpy(pidx_t), nt).numpy()
+    dst, src = order[:, 0].astype(np.int64), order[:, 1].astype(np.int64)
+    assert sorted(dst) == list(range(nf * S.K))
+    assert (np.diff(src >> G.tile_log2(nt)) >= 0).all()
+    assert G.tile_log2(nt) == 6 and G.tile_log2(G.MAX_TILES << 6) == 6
+    assert G.tile_log2((G.MAX_TILES << 6) + 1) == 7
+    out = np.empty((nf * S.K, 12), dtype=np.int32)
+    out[dst] = table[src]
+    np.testing.assert_array_equal(out, table[pidx_t.T.reshape(-1)])
+
+
 def test_msm_scan_rm_sames(table):
     rng = np.random.default_rng(7)
     nf = 128

@@ -164,19 +164,25 @@ def test_main_without_a_card_raises(monkeypatch, probe):
         probe.main([])
 
 
-@pytest.mark.parametrize("name", ["probe_scan.cuh", "probe_scan.cu"])
+@pytest.mark.parametrize("name", ["probe_scan.cuh", "probe_scan.cu", "probe_move.cu"])
 def test_probe_scan_header_runs_only_the_inlined_formulas(name):
-    """The probes' two scan templates (csrc/probe_scan.cuh, instantiated by
-    csrc/probe_scan.cu) run the inlined 26-bit madd26 of csrc/ec26.cuh:
-    neither file includes csrc/ec.cuh nor calls its 13-bit madd (a call
+    """The probes' scans (the two templates of csrc/probe_scan.cuh,
+    instantiated by csrc/probe_scan.cu and csrc/probe_move.cu, and the
+    fused-gather scans of csrc/probe_move.cu) run the inlined 26-bit madd26
+    or madd26_x4 of csrc/ec26.cuh: no file calls a 13-bit madd (a call
     through a stack frame) or a 13-bit madd2, so an instantiation cannot
-    fall back to one.  The card checks each instantiation's frame and calls
-    (chip_smoke.py::INLINED)."""
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "webgpu_msm_twisted_edwards_tpu_torch", "csrc", name)
-    with open(path) as f:
+    fall back to one.  The 13-bit point formulas are gone: csrc/ec.cuh does
+    not exist and no source under csrc/ includes it.  The card checks each
+    instantiation's frame and calls (chip_smoke.py::INLINED)."""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "webgpu_msm_twisted_edwards_tpu_torch", "csrc")
+    assert not os.path.exists(os.path.join(csrc, "ec.cuh"))
+    for src in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, src)) as f:
+            includes = re.findall(r'^\s*#include\s+"([^"]+)"', f.read(), re.M)
+        assert "ec.cuh" not in includes, src
+    with open(os.path.join(csrc, name)) as f:
         code = re.sub(r"//[^\n]*", "", f.read())
-    assert "ec.cuh" not in re.findall(r'#include\s+"([^"]+)"', code)
     assert not re.search(r"\bmadd2?\s*\(", code)
-    if name.endswith(".cuh"):
-        assert re.search(r"\bmadd26\s*\(", code)
+    if name != "probe_scan.cu":
+        assert re.search(r"\bmadd26(_x4)?\s*\(", code)

@@ -1,19 +1,21 @@
 // Extended twisted Edwards point arithmetic in the 26-bit digits of
-// csrc/field26.cuh: the scans (csrc/scan.cuh), the carry scan
+// csrc/field26.cuh: the scans (csrc/scan.cuh, and the probes' in
+// csrc/probe_scan.cuh and csrc/probe_move.cu), the carry scan
 // (csrc/scan.cu), both BPR stages and the Horner fold (csrc/bpr.cu), the
 // masked add, the per-window reduce, the quarter-store extraction (madd26
 // and full_add26) and the repeated doubling (pt_double26) in csrc/ec.cu;
 // its warp-staged row store also serves the normalization
 // (csrc/precompute.cu).
 //
-// madd26, full_add26, full_add26_x4, pt_double26 and pt_double26_x4 repeat
-// the plain versions' madd, full_add and double (ops/kernels/ec.py, the JAX
-// package's ec.py::madd, ::full_add, ::double) operation for operation, in
-// the same order, on digits: field26.cuh says why each digit operation
-// gives the 13-bit one's residue, so on normalized inputs these formulas
-// give the plain versions' packed rows bit for bit.  Unlike the 13-bit
-// formulas of ec.cuh, which cicc (CUDA 12.8) cannot inline into a loop
-// kernel, these are inlined: no call and no stack frame.
+// madd26, madd26_x4, full_add26, full_add26_x4, pt_double26 and
+// pt_double26_x4 repeat the plain versions' madd, full_add and double
+// (ops/kernels/ec.py, the JAX package's ec.py::madd, ::full_add, ::double)
+// operation for operation, in the same order, on digits: field26.cuh says
+// why each digit operation gives the 13-bit one's residue, so on normalized
+// inputs these formulas give the plain versions' packed rows bit for bit.
+// They are inlined: no call and no stack frame (cicc, CUDA 12.8, could not
+// inline the same formulas in 13-bit limbs into a loop kernel, which is why
+// no kernel of the port runs those).
 #pragma once
 
 #include "field26.cuh"
@@ -156,6 +158,34 @@ __device__ __forceinline__ PtD full_add26_x4(const PtD& p1, const PtD& p2, int q
   // x = e*f, y = g*h, t = e*h, z = f*g.
   const Fd r = mont26(fd_pick4(q, e, g, e, f), fd_pick4(q, f, h, h, g));
   return ptd_shfl4(r);
+}
+
+// ec.py::madd, p1 + a table point in cached form, on a group of four
+// neighbouring lanes that hold the same p1, as full_add26_x4 does the add.
+// v2 is the one element of the table point that lane q's first product
+// takes: y2-x2 on lane 0, y2+x2 on lane 1, 2*d*t2 on lanes 2 and 3.  The 7
+// products are two sets: a = d1*d2, b = s1*s2, cc = t1*td2 on lanes 0-2
+// (lane 3 repeats cc), then x = e*f, y = g*h, t = e*h, z = f*g on lanes 0-3;
+// the group exchanges the results by shuffles.  Each product takes the
+// operands it takes in madd26, and each lazy operation is madd26's on the
+// same operands, so the bits are the same; the dependent chain is 2
+// products long, not 7.  A lane computes only the lazy operations its
+// products take: one of d1 = y1 - x1 and s1 = x1 + y1, then dd, and of
+// e = b - a, f = dd - cc, g = dd + cc, h = b + a the two it multiplies.
+__device__ __forceinline__ PtD madd26_x4(const PtD& p1, const Fd& v2, int q) {
+  const bool lane0 = q == 0;
+  const Fd ds1 = fd_addsub_lazy(fd_select(lane0, p1.y, p1.x), fd_select(lane0, p1.x, p1.y),
+                                lane0);
+  const Fd dd = fd_add_lazy(p1.z, p1.z);
+  const Fd m = mont26(fd_select(q < 2, ds1, p1.t), v2);
+  const Fd a = fd_shfl4(m, 0);
+  const Fd b = fd_shfl4(m, 1);
+  const Fd cc = fd_shfl4(m, 2);
+  // Lane 0: e, f; 1: g, h; 2: e, h; 3: f, g.
+  const bool ba_x = q == 0 || q == 2, ba_y = q == 1 || q == 2;
+  const Fd x = fd_addsub_lazy(fd_select(ba_x, b, dd), fd_select(ba_x, a, cc), q != 1);
+  const Fd y = fd_addsub_lazy(fd_select(ba_y, b, dd), fd_select(ba_y, a, cc), lane0);
+  return ptd_shfl4(mont26(x, y));
 }
 
 // ec.py::double (dbl-2008-hwcd with a = -1) on one thread:

@@ -27,8 +27,8 @@
 // headroom form, every digit but the top >= 2^26 - 1; a u32 wrap at digit 9
 // is a multiple of 2^266) and return its normalized digits: split into
 // limbs, the same words.  So a madd kept in digits from its row loads to
-// its stores gives field.cuh's madd (csrc/ec.cuh) bit for bit on normalized
-// inputs, and on the pipeline's (table rows < 5.3p, accumulators < 1.3p,
+// its stores gives the madd in field.cuh's 13-bit limbs (ops/kernels/ec.py's
+// plain madd) bit for bit on normalized inputs, and on the pipeline's (table rows < 5.3p, accumulators < 1.3p,
 // subtrahends < 3p) both are the JAX package's; the same holds for the full
 // add, whose extra product by d takes d*R mod p (< p) as its second input.
 //
@@ -125,6 +125,15 @@ __device__ __forceinline__ Fd fd_from_limbs(const uint32_t* l) {
   return r;
 }
 
+// a or b, word by word: a select of whole structs would keep both in local
+// memory and select an address.
+__device__ __forceinline__ Fd fd_select(bool take_a, const Fd& a, const Fd& b) {
+  Fd r;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) r.v[i] = take_a ? a.v[i] : b.v[i];
+  return r;
+}
+
 // Digits -> the 10 packed words of common.py::pack2 (limb 2i in bits 0..12,
 // limb 2i+1 in bits 16..28).
 __device__ __forceinline__ uint32_t fd_pack_word(uint32_t d) {
@@ -161,6 +170,17 @@ __device__ __forceinline__ Fd fd_sub_lazy(const Fd& a, const Fd& b) {
   Fd r;
 #pragma unroll
   for (int i = 0; i < MSM_LD; ++i) r.v[i] = a.v[i] + (d_q4(i) - b.v[i]);
+  fd_carry_sweep(r);
+  return r;
+}
+
+// fd_sub_lazy(a, b) where sub is set, else fd_add_lazy(a, b): each digit is
+// a + (4p - b) or a + b, the same words as the one chosen, so a lane that
+// needs one of the two (madd26_x4) computes only that.
+__device__ __forceinline__ Fd fd_addsub_lazy(const Fd& a, const Fd& b, bool sub) {
+  Fd r;
+#pragma unroll
+  for (int i = 0; i < MSM_LD; ++i) r.v[i] = a.v[i] + (sub ? d_q4(i) - b.v[i] : b.v[i]);
   fd_carry_sweep(r);
   return r;
 }

@@ -78,13 +78,6 @@ __device__ __forceinline__ bool fd_is_zero(const Fd& a) {
   return o == 0;
 }
 
-__device__ __forceinline__ Fd fd_select(bool take_a, const Fd& a, const Fd& b) {
-  Fd r;
-#pragma unroll
-  for (int i = 0; i < MSM_LD; ++i) r.v[i] = take_a ? a.v[i] : b.v[i];
-  return r;
-}
-
 // A prefix's digits in words 2*MSM_LP .. 3*MSM_LP-1 of an output row, read
 // back by the thread that wrote it (R where the row holds none).
 __device__ __forceinline__ void fd_put_scratch(uint32_t* row, const Fd& a) {

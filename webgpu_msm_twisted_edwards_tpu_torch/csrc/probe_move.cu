@@ -5,7 +5,6 @@
 
 #include <cstdint>
 
-#include "ec.cuh"
 #include "probe_scan.cuh"
 
 namespace msm {
@@ -90,18 +89,32 @@ bulk_gather_kernel(const uint32_t* __restrict__ table, const int32_t* __restrict
 // that nothing wrote); fused runs both.
 //
 // Bound on the H100: operations for fused and scan-only (one 7-product madd
-// an entry), bytes for copy-only.
-// Design: the TPU staged all 64 steps of 256 fragments (8 MB of VMEM); a
-// block here has 32 fragments (so the probe's 4096 fragments fill 128 of the
-// 132 SMs) and stages FG_STEPS steps at a time in shared memory (64 words a
-// row at a 68-word stride, so a quarter-warp's 16-byte reads fall on
-// distinct banks), double-buffered: the block's warp issues the 16-byte
-// cp.async copies of stage s+1 into one buffer, waits for stage s's in the
-// other (cp.async.wait_group 1, then a barrier), and scans stage s while the
-// copies of s+1 are in flight (2 x 4 x 32 x 272 B = 68 KB a block).  The
-// scan phase still calls the 13-bit madd of csrc/ec.cuh through a stack
-// frame: these two scans are its last callers, not yet moved to the inlined
-// madd26 of the other probes' scans.
+// an entry), bytes for copy-only; and latency: a fragment is a chain of 64
+// dependent madds, and the probe's default has 4096 fragments, about 31 a
+// SM.
+// Design: four lanes a fragment on madd26_x4 (csrc/ec26.cuh), inlined, in
+// 26-bit digits from the row loads to the stores: the madd's 7 products are
+// two sets, so a step's dependent chain is 2 products long, not 7.  Lane q
+// loads only the element of the cached row that its first product takes
+// (y-x, y+x, 2*d*t on lanes 0, 1, 2; lane 3 repeats 2*d*t), negated (4p - v)
+// on lanes 0, 2 and 3 where the sign word is set; the four lanes compare the
+// key and select alike.  The key and sign words come a stage ahead, and
+// scan-only's rows (in device memory) a step ahead, of their use, so that a
+// step waits on its products, not on a load.  Each lane writes its
+// coordinate's 10 packed words of the step's 64-word row and 6 of its 24
+// zero words.  A block is 32 fragments: 128 threads for the scans (the
+// default's 4096 fragments fill 128 of the 132 SMs; a fragment's lanes
+// cannot be spread wider, so smaller blocks would still leave 32 fragments
+// on the busiest SM), one warp for copy-only (with 128 threads it took
+// 0.0384 ms against one warp's 0.0326 on an H100 80GB HBM3 at 700 W).
+// The copy stages FG_STEPS steps at a time in shared memory (64 words a
+// row at a 68-word stride, so a quarter-warp's 16-byte accesses fall on
+// distinct banks), double-buffered: the block's warps issue the 16-byte
+// cp.async copies of stage s+1 into one buffer (a warp a step under the
+// scans), the block waits for stage s's in the other (cp.async.wait_group
+// 1, then a barrier), and scans stage s while the copies of s+1 are in
+// flight (2 x 4 x 32 x 272 B = 68 KB a block).  The
+// quads of fragments past nf recompute fragment nf - 1 and store nothing.
 
 constexpr int FG_FRAGS = 32;
 constexpr int FG_STEPS = 4;
@@ -111,62 +124,122 @@ constexpr int FG_SMEM = 2 * FG_BUF * 4;
 
 extern __shared__ __align__(16) uint32_t fg_stage[];
 
+// Lanes a fragment: four for the scans, one for copy-only, which has no
+// products to share out.
+template <bool SCAN>
+__host__ __device__ constexpr int fg_lanes() {
+  return SCAN ? 4 : 1;
+}
+
 // Copy the first 64 words of the table rows of steps j0 .. j0+FG_STEPS-1 of
 // the block's nloc fragments into buf, row (s, l) at (s*FG_FRAGS + l)*FG_ROW.
-// The block is one warp: lane l loads fragment l's FG_STEPS indices at once
-// (one load latency a stage, not one a row), then the warp copies two rows
-// at a time, lane t the 16-byte piece t % 16 of row 2k + t / 16, whose index
-// it takes from that row's lane by a shuffle.
+// Each of the block's NW warps takes FG_STEPS / NW of the steps: lane l
+// loads fragment l's index of each (a warp's loads on neighbouring words,
+// one latency for all), then the warp copies two rows at a time, lane t the
+// 16-byte piece t % 16 of row 2i + t / 16, whose index it takes from that
+// row's lane by a shuffle.
+template <int NW>
 __device__ __forceinline__ void fg_issue(const uint32_t* table, const int32_t* pidx_t,
                                          long long nf, long long f0, int nloc, int j0,
                                          uint32_t* buf) {
-  static_assert(FG_FRAGS == 32, "a block is one warp");
-  const int t = threadIdx.x, q = t & 15, half = t >> 4;
-  int idx[FG_STEPS];
+  static_assert(FG_FRAGS == 32 && FG_STEPS % NW == 0, "a warp stages whole steps");
+  constexpr int SPW = FG_STEPS / NW;
+  const int s0 = (threadIdx.x >> 5) * SPW, t = threadIdx.x & 31, q = t & 15, half = t >> 4;
+  int idx[SPW];
 #pragma unroll
-  for (int s = 0; s < FG_STEPS; ++s) idx[s] = t < nloc ? pidx_t[(j0 + s) * nf + f0 + t] : 0;
+  for (int u = 0; u < SPW; ++u)
+    idx[u] = t < nloc ? pidx_t[(j0 + s0 + u) * nf + f0 + t] : 0;
 #pragma unroll
-  for (int s = 0; s < FG_STEPS; ++s) {
+  for (int u = 0; u < SPW; ++u) {
 #pragma unroll 4
-    for (int k = 0; k < FG_FRAGS / 2; ++k) {
-      const int l = 2 * k + half;
-      const int row = __shfl_sync(0xffffffffu, idx[s], l);
+    for (int i = 0; i < FG_FRAGS / 2; ++i) {
+      const int l = 2 * i + half;
+      const int row = __shfl_sync(0xffffffffu, idx[u], l);
       if (l < nloc)
-        cp_async16(buf + (s * FG_FRAGS + l) * FG_ROW + 4 * q,
+        cp_async16(buf + ((s0 + u) * FG_FRAGS + l) * FG_ROW + 4 * q,
                    table + (long long)row * MSM_TWR + 4 * q);
     }
   }
 }
 
-// scan_out_probe.py's step in the 13-bit limbs of csrc/field.cuh: the key
-// compare, and y-x and 2*d*t of the row negated where sgn_t is set.
-__device__ __forceinline__ bool fg_step_same(const int32_t* keys_t, const int32_t* sgn_t,
-                                             long long e, int& kprev, Fe& d2, Fe& td2) {
-  if (sgn_t[e] != 0) {
-    d2 = fr_neg_lazy(d2);
-    td2 = fr_neg_lazy(td2);
+// The raw words of lane q's element of a cached row (16-byte aligned): y-x,
+// y+x or 2*d*t (words 0, 20 or 40, one limb a word) for q = 0, 1 and 2,
+// 2*d*t for q = 3.
+__device__ __forceinline__ void fg_load(const uint32_t* row, int q, uint4 (&w)[MSM_L / 4]) {
+  const uint4* r4 = reinterpret_cast<const uint4*>(row + (q < 2 ? q : 2) * MSM_L);
+#pragma unroll
+  for (int i = 0; i < MSM_L / 4; ++i) w[i] = r4[i];
+}
+
+// fg_load's words as digits, negated (4p - v) where neg is set and the
+// element is y-x or 2*d*t, as scan_out_probe.py's step negates them under
+// the sign word.
+__device__ __forceinline__ Fd fg_element(const uint4 (&w)[MSM_L / 4], int q, bool neg) {
+  uint32_t l[MSM_L];
+#pragma unroll
+  for (int i = 0; i < MSM_L / 4; ++i) {
+    l[4 * i] = w[i].x;
+    l[4 * i + 1] = w[i].y;
+    l[4 * i + 2] = w[i].z;
+    l[4 * i + 3] = w[i].w;
   }
-  const bool same = keys_t[e] == kprev;
-  kprev = keys_t[e];
-  return same;
+  const Fd v = fd_from_limbs(l);
+  return neg && q != 1 ? fd_neg_lazy(v) : v;
+}
+
+// Lane q's part of one step's 64-word row (ec.py::pt_pack): coordinate q's
+// 10 packed words at 10q, and zero words 40 + 6q .. 45 + 6q.
+__device__ __forceinline__ void fg_store(uint32_t* row, const PtD& p, int q) {
+  static_assert(MSM_TW - 4 * MSM_LP == 6 * 4, "six zero words a lane");
+  uint32_t w[MSM_LP];
+  pack_digits(fd_pick4(q, p.x, p.y, p.t, p.z), w);
+  uint2* r2 = reinterpret_cast<uint2*>(row + q * MSM_LP);
+#pragma unroll
+  for (int i = 0; i < MSM_LP / 2; ++i) r2[i] = make_uint2(w[2 * i], w[2 * i + 1]);
+  uint2* z2 = reinterpret_cast<uint2*>(row + 4 * MSM_LP + 6 * q);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) z2[i] = make_uint2(0, 0);
+}
+
+// The key and sign words of steps j0 .. j0+FG_STEPS-1 of fragment f.
+__device__ __forceinline__ void fg_words(const int32_t* keys_t, const int32_t* sgn_t,
+                                         long long nf, long long f, int j0, int (&key)[FG_STEPS],
+                                         int (&sgn)[FG_STEPS]) {
+#pragma unroll
+  for (int s = 0; s < FG_STEPS; ++s) {
+    key[s] = keys_t[(j0 + s) * nf + f];
+    sgn[s] = sgn_t[(j0 + s) * nf + f];
+  }
 }
 
 template <bool COPY, bool SCAN>
-__global__ void __launch_bounds__(FG_FRAGS)
+__global__ void __launch_bounds__(FG_FRAGS * fg_lanes<SCAN>())
 fused_gather_kernel(const uint32_t* __restrict__ table, const int32_t* __restrict__ pidx_t,
                     const int32_t* __restrict__ keys_t, const int32_t* __restrict__ sgn_t,
                     const uint32_t* __restrict__ staged, uint32_t* __restrict__ out,
                     long long nf) {
-  const int t = threadIdx.x;
-  const long long f0 = blockIdx.x * (long long)FG_FRAGS, f = f0 + t;
+  constexpr int LANES = fg_lanes<SCAN>(), NW = FG_FRAGS * LANES / 32;
+  const int q = threadIdx.x % LANES, l = threadIdx.x / LANES;
+  const long long f0 = blockIdx.x * (long long)FG_FRAGS;
   const int nloc = (int)(nf - f0 < FG_FRAGS ? nf - f0 : FG_FRAGS);
-  const bool live = t < nloc;
-  const Pt ident = pt_identity();
-  Pt acc = ident;
+  const bool live = l < nloc;
+  const int lr = live ? l : nloc - 1;  // the fragment this quad reads
+  const long long f = f0 + lr;
+  const PtD ident = ptd_identity();
+  PtD acc = ident;
   int kprev = -1;
-  uint32_t* dst = out + f * scan_out_words<1>();
+  uint32_t* dst = out + f * scan_out_words<1>();  // written only where live
+  // The scan's loads come a stage (keys, signs) or a step (scan-only's
+  // staged rows, in device memory) ahead of their use, so that a step's
+  // chain is its products, not a load's latency.
+  int key[FG_STEPS], sgn[FG_STEPS];
+  uint4 next[MSM_L / 4];
+  if constexpr (SCAN) {
+    fg_words(keys_t, sgn_t, nf, f, 0, key, sgn);
+    if constexpr (!COPY) fg_load(staged + f * MSM_TWR, q, next);
+  }
   if constexpr (COPY) {
-    fg_issue(table, pidx_t, nf, f0, nloc, 0, fg_stage);
+    fg_issue<NW>(table, pidx_t, nf, f0, nloc, 0, fg_stage);
     cp_async_commit();
   }
 #pragma unroll 1
@@ -176,33 +249,44 @@ fused_gather_kernel(const uint32_t* __restrict__ table, const int32_t* __restric
       // Stage s+1 goes into the buffer that stage s-1 used; the barrier at
       // the end of the last pass has freed it.
       if (j0 + FG_STEPS < MSM_K)
-        fg_issue(table, pidx_t, nf, f0, nloc, j0 + FG_STEPS,
-                 fg_stage + ((j0 / FG_STEPS + 1) & 1) * FG_BUF);
+        fg_issue<NW>(table, pidx_t, nf, f0, nloc, j0 + FG_STEPS,
+                     fg_stage + ((j0 / FG_STEPS + 1) & 1) * FG_BUF);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
       if constexpr (!SCAN) {
         if (j0 == 0 && live) {
-          const uint4* row = reinterpret_cast<const uint4*>(buf + t * FG_ROW);
+          constexpr int PIECES = MSM_TW / 4 / LANES;
+          const uint4* row = reinterpret_cast<const uint4*>(buf + l * FG_ROW);
           uint4* o4 = reinterpret_cast<uint4*>(dst);
 #pragma unroll
-          for (int q = 0; q < MSM_TW / 4; ++q) o4[q] = row[q];
+          for (int c = 0; c < PIECES; ++c) o4[q * PIECES + c] = row[q * PIECES + c];
         }
       }
     }
     if constexpr (SCAN) {
-      if (live) {
-#pragma unroll 1
-        for (int s = 0; s < FG_STEPS; ++s) {
-          const int j = j0 + s;
-          Fe d2, s2, td2;
-          load_cached(COPY ? buf + (s * FG_FRAGS + t) * FG_ROW
-                           : staged + ((long long)j * nf + f) * MSM_TWR,
-                      d2, s2, td2);
-          const bool same = fg_step_same(keys_t, sgn_t, j * nf + f, kprev, d2, td2);
-          acc = madd(pt_select(same, acc, ident), d2, s2, td2);
-          pt_store(dst + j * MSM_TW, acc);
+      int key_n[FG_STEPS], sgn_n[FG_STEPS];
+      if (j0 + FG_STEPS < MSM_K) fg_words(keys_t, sgn_t, nf, f, j0 + FG_STEPS, key_n, sgn_n);
+#pragma unroll
+      for (int s = 0; s < FG_STEPS; ++s) {
+        const int j = j0 + s;
+        uint4 w[MSM_L / 4];
+        if constexpr (COPY) {
+          fg_load(buf + (s * FG_FRAGS + lr) * FG_ROW, q, w);
+        } else {
+#pragma unroll
+          for (int i = 0; i < MSM_L / 4; ++i) w[i] = next[i];
+          if (j + 1 < MSM_K) fg_load(staged + ((j + 1) * nf + f) * MSM_TWR, q, next);
         }
+        const bool same = key[s] == kprev;
+        kprev = key[s];
+        acc = madd26_x4(ptd_select(same, acc, ident), fg_element(w, q, sgn[s] != 0), q);
+        if (live) fg_store(dst + j * MSM_TW, acc, q);
+      }
+#pragma unroll
+      for (int s = 0; s < FG_STEPS; ++s) {
+        key[s] = key_n[s];
+        sgn[s] = sgn_n[s];
       }
     }
     if constexpr (COPY) __syncthreads();
@@ -218,7 +302,7 @@ static int launch_fused_gather(const void* table, const void* pidx_t, const void
     const int smem = COPY ? FG_SMEM : 0;
     auto kernel = fused_gather_kernel<COPY, SCAN>;
     if (COPY) cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    kernel<<<blocks, FG_FRAGS, smem, (cudaStream_t)stream>>>(
+    kernel<<<blocks, FG_FRAGS * fg_lanes<SCAN>(), smem, (cudaStream_t)stream>>>(
         (const uint32_t*)table, (const int32_t*)pidx_t, (const int32_t*)keys_t,
         (const int32_t*)sgn_t, (const uint32_t*)staged, (uint32_t*)out, nf);
   }

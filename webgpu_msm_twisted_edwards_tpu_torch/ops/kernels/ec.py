@@ -3,7 +3,7 @@ kernels over packed rows: the masked add, the quarter-store extraction and
 repeated doubling.
 
 Plain counterparts of webgpu_msm_twisted_edwards_tpu/ops/pallas/ec.py and of
-the point formulas of csrc/ec26.cuh (and csrc/ec.cuh's madd): the rotated
+the point formulas of csrc/ec26.cuh: the rotated
 a = -1 hwcd formulas, with the same lazy products in the same order, so the
 projective representatives match bit for bit.
 Points are 4-tuples of [..., L, B] int64 limb tensors in Montgomery form.
