@@ -12,18 +12,20 @@ Phases (any failure raises and exits non-zero):
    operations are inlined (INLINED: the carry scan, bpr_stage1, bpr_stage2,
    the Horner fold, the masked add, the per-window reduce, the quarter-store
    extraction, the repeated doubling, the table conversion, the
-   normalization, every instantiation of the probes' two scan templates and
-   of the fused-gather probe's kernel, and the row gather's copies and its
-   partition's three kernels; a frame or a call fails);
+   normalization, the signed-window entries, every instantiation of the
+   probes' two scan templates and of the fused-gather probe's kernel, and
+   the row gather's copies and its partition's three kernels; a frame or a
+   call fails);
 3. the main path: compute_msm at 2^16 points (c=13) and at 2^20 points
    (c=16) on inputs resident on the card (points from the native oracle's
    generator, scalars from a seeded numpy generator): kernel launch counts
-   of one run, started from zero (the scan that reads the table by index
-   once per window group, no gather kernel and no scan of gathered rows,
+   of one run, started from zero (the entries kernel once, the scan that
+   reads the table by index once per window group, no gather kernel and
+   no scan of gathered rows,
    MASKED_ADD_LAUNCHES masked adds and one per-window reduce), then one
    warm and five timed runs, and the result checked against the C++
    oracle;
-4. each of the nine kernels replayed on the inputs of its largest call in
+4. each of the ten kernels replayed on the inputs of its largest call in
    the 2^20 run, held bit for bit against its plain PyTorch version, and
    timed beside that version, the PyTorch library call that computes the
    same function (where one exists) and its bound; bpr_stage2 also held on
@@ -72,10 +74,10 @@ Phases (any failure raises and exits non-zero):
    use_kernels=False at 4096 points, c=8, equal to the kernels' answer;
 10. compute_msm_batch at 2^20 over BATCH_K scalar vectors on the card (the
    first is phase 3's): launch counts from zero (one table conversion,
-   BATCH_K scans a window group), each result equal to compute_msm on its
-   vector, the median of BATCH_RUNS timed runs beside BATCH_K times phase
-   3's one-shot median, then once more forced into two point blocks (two
-   conversions), equal;
+   BATCH_K entries launches, BATCH_K scans a window group), each result
+   equal to compute_msm on its vector, the median of BATCH_RUNS timed runs
+   beside BATCH_K times phase 3's one-shot median, then once more forced
+   into two point blocks (two conversions), equal;
 11. validate_pipeline at each of VALIDATE_CASES (1024 points at c=8, and at
    c=4, whose bucket counts are a binary search), every stage "ok", with
    its seconds;
@@ -197,7 +199,8 @@ INLINED = (("scan", "ab_scan_kernel", 1), ("bpr", "bpr_stage1_kernel", 1),
            ("probe_scan", "probe_scan_kernel", 7), ("probe_scan", "scan_dual_kernel", 3),
            ("probe_move", "probe_scan_kernel", 1), ("probe_move", "fused_gather_kernel", 3),
            ("gather", "row_gather_kernel", 8), ("gather", "rg_count_kernel", 1),
-           ("gather", "rg_offsets_kernel", 1), ("gather", "rg_place_kernel", 1))
+           ("gather", "rg_offsets_kernel", 1), ("gather", "rg_place_kernel", 1),
+           ("digits", "signed_window_entries_kernel", 1))
 #: masked_add launches of one MSM at 2^16 and 2^20 points and in the fixed
 #: base (one entry block): the bucket extraction and the carry scan's two
 #: carry applies; the per-window reduce after BPR is one reduce_rows launch.
@@ -324,8 +327,8 @@ def main_path(n: int, capture: bool) -> dict:
 
 #: Kernels each run of the fixed-base path must launch.
 PRECOMPUTE_LAUNCHES = {"convert_pair": 1, "double_rows": 15, "normalize": 15}
-FIXED_BASE_MSM_KERNELS = ("hist", "scan_table_signed", "ab_scan", "masked_add", "bpr1", "bpr2",
-                          "reduce_rows")
+FIXED_BASE_MSM_KERNELS = ("digits", "hist", "scan_table_signed", "ab_scan", "masked_add", "bpr1",
+                          "bpr2", "reduce_rows")
 
 
 def fixed_base_path(n: int, want: dict) -> dict:
@@ -593,7 +596,7 @@ def work(name: str, args, out) -> tuple[int, int]:
     moved = nbytes(*args) + nbytes(*outs)
     if name in ("convert", "convert_pair"):
         return moved, args[0].shape[0] * 4 * MONT
-    if name in ("hist", "gather"):
+    if name in ("digits", "hist", "gather"):
         return moved, 0
     if name in PROBE_ROW_SCANS:
         # Rows [nf, K, TWR] (staged [K, nf, TWR]) of which each entry's 3L
@@ -727,6 +730,7 @@ def kernel_specs() -> tuple[list, list, list]:
     """(main path, fixed-base path, scan configurations) kernel specs."""
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import bpr as B
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import convert as CV
+    from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import digits as DG
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import ec as E
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import gather as G
     from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import hist as H
@@ -745,6 +749,10 @@ def kernel_specs() -> tuple[list, list, list]:
     main = [
         same("convert", CV.build_table_doubled, CV.build_table_doubled_plain, "convert.cu",
              "pallas/convert.py:116"),
+        # No Pallas kernel: XLA's decompose_scalars_signed and the key and
+        # row preparation of window_group_bucket_sums (msm_pipeline.py:200).
+        same("digits", DG.signed_window_entries, DG.signed_window_entries_plain, "digits.cu",
+             "convert.py:90"),
         same("hist", H.bucket_counts, H.bucket_counts_plain, "hist.cu", "pallas/hist.py:36",
              lib_hist),
         same("scan_fused", S.msm_scan_fused, S.msm_scan_fused_plain, "scan.cu",
@@ -1087,7 +1095,8 @@ def batch_path(n: int, want: dict, one_shot_ms: float) -> dict:
     res = compute_msm_batch(coords, vectors)
     first_ms = (time.time() - t0) * 1e3
     launches = dict(_build.launches)
-    if launches.get("convert") != 1 or launches.get("scan_fused") != BATCH_K * groups:
+    if (launches.get("convert") != 1 or launches.get("digits") != BATCH_K
+            or launches.get("scan_fused") != BATCH_K * groups):
         raise AssertionError(f"batch launches {launches}, {groups} window groups")
     if res[0] != want:
         raise AssertionError(f"batch: got {res[0]}, compute_msm {want}")
@@ -1168,7 +1177,7 @@ BENCH_COMMANDS = (
 #: Launch keys of the kernels each subcommand must run (the bucket pipeline
 #: on the default path: table, counts, the row-reading scan, the carry
 #: scan, the masked adds, BPR and the fold).
-_PIPELINE = {"convert", "hist", "scan_fused", "ab_scan", "masked_add", "bpr1", "bpr2",
+_PIPELINE = {"convert", "digits", "hist", "scan_fused", "ab_scan", "masked_add", "bpr1", "bpr2",
              "reduce_rows", "horner"}
 BENCH_KERNELS = {
     "full": _PIPELINE,
@@ -1248,12 +1257,12 @@ def sharded_launches(k: int, groups: int) -> dict:
     """Launches of one compute_msm_sharded over k shards of `groups` window
     groups each: per shard and group the counts, the row-reading scan, the
     carry scan's three levels and three masked adds (its two carry applies
-    and the extraction); per shard the table, the two BPR stages and the
-    per-window reduce; then the cross-shard fold (one reduce over a
-    power-of-two mesh of two or more, else k - 1 masked adds) and one Horner
-    fold."""
+    and the extraction); per shard the table, the entries, the two BPR
+    stages and the per-window reduce; then the cross-shard fold (one reduce
+    over a power-of-two mesh of two or more, else k - 1 masked adds) and one
+    Horner fold."""
     pow2 = k & (k - 1) == 0
-    return {"convert": k, "hist": k * groups, "scan_fused": k * groups,
+    return {"convert": k, "digits": k, "hist": k * groups, "scan_fused": k * groups,
             "ab_scan": 3 * k * groups,
             "masked_add": MASKED_ADD_LAUNCHES * k * groups + (0 if pow2 else k - 1),
             "bpr1": k, "bpr2": k, "reduce_rows": k + (1 if pow2 and k > 1 else 0), "horner": 1}
@@ -1498,7 +1507,8 @@ def main() -> int:
         # Every kernel of the path, the table scan once per window group.
         ran = {k: v for k, v in r["launches"].items() if v > 0}
         if (sorted(ran) != sorted(s[0] for s in main_specs) or ran["scan_fused"] != r["groups"]
-                or ran["masked_add"] != MASKED_ADD_LAUNCHES or ran["reduce_rows"] != 1):
+                or ran["masked_add"] != MASKED_ADD_LAUNCHES or ran["reduce_rows"] != 1
+                or ran["digits"] != 1):
             raise AssertionError(f"2^{logn}: launches {r['launches']}, {r['groups']} window "
                                  f"groups")
     kernels = kernels_phase(main_specs, e2e["2^20"].pop("captures"), e2e["2^20"]["launches"])

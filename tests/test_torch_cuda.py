@@ -16,13 +16,14 @@ import torch
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import _build
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import bpr as B
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import convert as CV
+from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import digits as DG
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import ec as E
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import gather as G
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import hist as H
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import precompute as PK
 from webgpu_msm_twisted_edwards_tpu_torch.ops.kernels import scan as S
 from webgpu_msm_twisted_edwards_tpu_torch.utils.interop import from_numpy_u32
-from webgpu_msm_twisted_edwards_tpu_torch.utils.params import PARAMS
+from webgpu_msm_twisted_edwards_tpu_torch.utils.params import PARAMS, MsmConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -82,8 +83,8 @@ def test_hist(dev, nb, case):
     at the pipeline's bucket counts, key sets that stress it, with
     window counts that split the card's SMs unevenly (3: several clusters a
     window, atomics into zeroed counts; 17: one cluster a window, plain
-    stores), an odd key count, and the keys both contiguous and as the
-    pipeline holds them (the transpose of [n, Wg])."""
+    stores), an odd key count, and the keys both contiguous, as the
+    pipeline holds them, and as the transpose of [n, Wg]."""
     rng = np.random.default_rng(2)
     if case == "mixed":
         keys = rng.integers(0, nb + 1, size=(3, 4096)).astype(np.int32)
@@ -106,6 +107,74 @@ def test_hist(dev, nb, case):
         want = H.bucket_counts_plain(k, nb)
         assert _same(H.bucket_counts(k, nb), want), wg
         assert _same(H.bucket_counts(k.T.contiguous().T, nb), want), wg
+
+
+#: (scalars, c) of the entries kernel's cases: the main path at 2^20 (c = 16,
+#: W = 16) and at 2^16 (c = 13, W = 20, windows straddling two words).
+ENTRIES_CASES = [(1 << 20, 16), (1 << 16, 13)]
+
+
+@pytest.mark.parametrize("single", [False, True], ids=["doubled", "single"])
+@pytest.mark.parametrize("n,c", ENTRIES_CASES)
+def test_signed_window_entries(dev, n, c, single):
+    """The one-pass entries kernel against its plain version, bit for bit:
+    the doubled table's sign n and rows from 0, or the fixed base's sign bit
+    30 and rows n a window from a table base; every window, then a slice.
+    Random words (most scalars >= r: the final carry is dropped) and the
+    carry chain's edges (all zeros, all ones, a window's half, all-ones
+    limbs).  The outputs are contiguous [wg, n] rows, one launch a call."""
+    cfg = MsmConfig(chunk_size=c)
+    nw, half = cfg.num_windows, 1 << (c - 1)
+    rng = np.random.default_rng(c)
+    words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+    words[0], words[1], words[2], words[3] = 0, 0xFFFFFFFF, half, half - 1
+    words[4:9] = 0
+    words[4:9, [1, 3, 5, 7, 2]] = 0xFFFFFFFF
+    scalars = from_numpy_u32(words, dev)
+    sbit, base, stride = ((1 << 30), 12345, n) if single else (n, 0, 0)
+    for w0, wg in ((0, nw), (2, nw // 2)):
+        _build.reset_launch_counts()
+        keys, idxs = DG.signed_window_entries(scalars, cfg, sbit, base, stride, w0, wg)
+        assert _build.launches["digits"] == 1
+        assert keys.shape == idxs.shape == (wg, n)
+        assert keys.is_contiguous() and idxs.is_contiguous()
+        want = DG.signed_window_entries_plain(scalars, cfg, sbit, base, stride, w0, wg)
+        assert _same(keys, want[0]) and _same(idxs, want[1]), (w0, wg)
+
+
+def test_signed_window_entries_refuses_what_it_cannot_index(dev):
+    """Windows starting past the scalar's 256 bits, c above 30 and rows past
+    31 bits are refused before a launch."""
+    scalars = torch.zeros((64, 8), dtype=torch.int32, device=dev)
+    _build.reset_launch_counts()
+    for cfg, sbit in ((MsmConfig(chunk_size=8, scalar_bits=264), 64),
+                      (MsmConfig(chunk_size=31), 64),
+                      (MsmConfig(chunk_size=16), 1 << 31)):
+        with pytest.raises(ValueError, match="signed_window_entries"):
+            DG.signed_window_entries(scalars, cfg, sbit)
+    assert not _build.launches["digits"]
+
+
+def test_compute_msm_2p16_with_entries_kernel_matches_oracle(dev):
+    """compute_msm at 2^16 (c = 13, W = 20) and compute_msm_precomputed over
+    a 2^16 base (c = 16, W' = 16), each launching the entries kernel once,
+    equal the oracle."""
+    from webgpu_msm_twisted_edwards_tpu_torch import compute_msm, compute_msm_precomputed
+    from webgpu_msm_twisted_edwards_tpu_torch import precompute_msm_base
+    from webgpu_msm_twisted_edwards_tpu_torch.utils import oracle
+
+    n = 1 << 16
+    pts, sc = _oracle_inputs(n, 16)
+    coords = from_numpy_u32(pts.view(np.uint32).reshape(n, 2, 8), dev)
+    scalars = from_numpy_u32(sc.view(np.uint32).reshape(n, 8), dev)
+    want = oracle.msm_parallel(pts, sc, c=16)
+    _build.reset_launch_counts()
+    got = compute_msm(coords, scalars)
+    assert _build.launches["digits"] == 1 and (got["x"], got["y"]) == want
+    pre = precompute_msm_base(coords)
+    _build.reset_launch_counts()
+    got = compute_msm_precomputed(pre, scalars)
+    assert _build.launches["digits"] == 1 and (got["x"], got["y"]) == want
 
 
 #: (table rows, row width, fragments, how the rows are named) of the row

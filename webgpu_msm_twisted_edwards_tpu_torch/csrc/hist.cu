@@ -10,10 +10,10 @@
 // raises the limit first; a larger nb is split into nr ranges of at most
 // 32768 buckets, one cluster each, every one reading all the keys) and
 // counts its slice of the window's keys with atomics on its own shared
-// memory.  The keys are read once, where they lie: coalesced for contiguous
-// rows; for the pipeline's [n, wg]-major keys each 32-byte sector holds 8
-// windows' keys, which the windows' clusters read at about the same time,
-// from L2.  Equal keys of one warp are added once, by their lowest lane,
+// memory.  The keys are read once, where they lie: coalesced for the
+// pipeline's contiguous rows; for [n, wg]-major keys each 32-byte sector
+// holds 8 windows' keys, which the windows' clusters read at about the same
+// time, from L2.  Equal keys of one warp are added once, by their lowest lane,
 // with their count (__match_any_sync, taken only where two neighbouring
 // lanes hold the same key): sorted keys, or keys that all fall in one
 // bucket, do not serialise on one address, and random keys pay one shuffle
@@ -105,7 +105,7 @@ hist_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ counts, long
 }  // namespace msm
 
 // keys: [wg, n] i32, key i of window w at keys[w*stride_w + i*stride_i]
-// (the pipeline's keys are the transpose of [n, wg] digits: stride_i = wg);
+// (the pipeline's keys are contiguous rows: stride_i = 1);
 // counts: [wg, nb] i32, every element written.  Returns the first CUDA
 // error: a refused shared-memory size or launch is not 0.
 extern "C" int msm_bucket_counts(const void* keys, void* counts, long long wg, long long n,

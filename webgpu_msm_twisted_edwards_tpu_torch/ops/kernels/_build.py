@@ -32,8 +32,8 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 #: Sources, one library each (probe_*: the kernels of experiments/).
-SOURCES = ("convert", "hist", "gather", "scan", "scan_variants", "ec", "bpr", "precompute",
-           "probe_scan", "probe_move")
+SOURCES = ("convert", "digits", "hist", "gather", "scan", "scan_variants", "ec", "bpr",
+           "precompute", "probe_scan", "probe_move")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

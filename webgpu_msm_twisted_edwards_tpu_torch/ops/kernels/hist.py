@@ -33,7 +33,7 @@ def bucket_counts(keys: torch.Tensor, nb: int) -> torch.Tensor:
         raise TypeError(f"keys: expected a 2-d int32 tensor, got {keys.dtype} {tuple(keys.shape)}")
     wg, n = keys.shape
     counts = torch.empty((wg, nb), dtype=torch.int32, device=keys.device)
-    # The kernel reads the keys where they lie: the pipeline's are a
-    # transposed view, and a contiguous copy would cost more than the count.
+    # The kernel reads the keys where they lie, by their strides: the
+    # pipeline's are contiguous rows, and a view needs no copy.
     _build.launch("hist", "hist", "msm_bucket_counts", keys, counts, wg, n, nb, *keys.stride())
     return counts

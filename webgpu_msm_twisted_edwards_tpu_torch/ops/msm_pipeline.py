@@ -3,11 +3,14 @@
 
 Port of the JAX package's ops/msm_pipeline.py:
 
-    1. table + digits   build_prod_table: build_table_doubled (kernel), rows
+    1. table + entries  build_prod_table: build_table_doubled (kernel), rows
                         n..2n-1 the negated points, or under MSM_SINGLE_TABLE
                         build_table (kernel), n rows;
-                        decompose_scalars_signed (torch) the signed digits.
-    2. per window group bucket sums (window_group_bucket_sums):
+                        signed_window_entries (kernel) each window's bucket
+                        keys and signed rows from the scalar words (the JAX
+                        package's decompose_scalars_signed and key
+                        preparation, in one pass).
+    2. per window group bucket sums (entry_bucket_sums):
                         a sort of (bucket key, signed row) per window;
                         bucket_counts (kernel); a fragment scan (kernel, one
                         of the variants of ops/kernels/scan.py) that reads
@@ -28,10 +31,11 @@ pipeline runs the doubled table, the row-major scan input (read by index
 from the table inside the scan, keys compared in the kernel) and the stable
 two-operand sort.
 
-window_group_bucket_sums also serves the fixed-base path (ops/precompute.py):
-given table_base, the digits are one block of a merged window-major single
-table (no negations), the digit sign rides bit 30 of the sorted payload, and
-the scan applies it.
+window_group_bucket_sums, the JAX package's stage, takes one window group's
+digits: their entries, then entry_bucket_sums.  The bucket sums also serve
+the fixed-base path (ops/precompute.py): the entries are one block of a
+merged window-major single table (no negations), the digit sign rides bit 30
+of the sorted payload, and the scan applies it.
 
 Every stage matches the JAX package's output bit for bit on the same input,
 in every configuration.
@@ -45,9 +49,9 @@ import torch
 
 from ..utils.params import MsmConfig
 from ..utils.runtime import device_memory_bytes
-from .convert import decompose_scalars_signed
 from .kernels.bpr import bpr, horner_fold
 from .kernels.convert import build_table, build_table_doubled
+from .kernels.digits import signed_window_entries, window_entries
 from .kernels.ec import TW, extract_reconstruct_rows, identity_row, masked_add_rows
 from .kernels.gather import row_gather, row_gather_flat
 from .kernels.hist import bucket_counts
@@ -181,27 +185,43 @@ def window_group_bucket_sums(table: torch.Tensor, digits_g: torch.Tensor, nb: in
     the limb-major layouts do.
 
     fused=True runs msm_scan_fused (doubled table only) whatever the layout
-    switches say.  The module's switches pick the other configurations."""
+    switches say.  The module's switches pick the other configurations.
+
+    Two steps: the entries (kernels/digits.py::window_entries, each
+    digit's key and signed row), then :func:`entry_bucket_sums`."""
     wg, n = digits_g.shape
-    if table_base is not None:
-        single = True
-    else:
-        single = table.shape[0] == n
-        if table.shape[0] not in (n, 2 * n):
-            raise ValueError(f"table has {table.shape[0]} rows, expected {n} (single) "
-                             f"or {2 * n} (doubled)")
+    single = table_base is not None or single_table(table, n)
+    keys, idxs = window_entries(digits_g, nb, sign_bit(single, n), table_base or 0)
+    return entry_bucket_sums(table, keys, idxs, nb, single, fused)
+
+
+def single_table(table: torch.Tensor, n: int) -> bool:
+    """True for an n-row single table, False for a 2n-row doubled one."""
+    if table.shape[0] not in (n, 2 * n):
+        raise ValueError(f"table has {table.shape[0]} rows, expected {n} (single) "
+                         f"or {2 * n} (doubled)")
+    return table.shape[0] == n
+
+
+def sign_bit(single: bool, n: int) -> int:
+    """What a negative digit adds to its entry's row: on the doubled table of
+    n points n, the negated half; on a single table 1 << 30, payload bit 30,
+    for the scan to apply."""
+    return (1 << 30) if single else n
+
+
+def entry_bucket_sums(table: torch.Tensor, keys: torch.Tensor, idxs: torch.Tensor, nb: int,
+                      single: bool, fused: bool = False) -> torch.Tensor:
+    """The bucket sums of one window group from its entries: keys [Wg, n]
+    int32 in [0, nb] (nb: a zero digit) and idxs [Wg, n] int32, each entry's
+    row plus :func:`sign_bit` for a negative digit, in scalar order within
+    each window.  single: the table is a single table (no negations), read
+    up to its last row.  Returns what :func:`window_group_bucket_sums`
+    returns."""
     if fused and single:
         raise ValueError("fused=True needs the doubled table")
-    dev = digits_g.device
-    d = digits_g
-    keys = torch.where(d == 0, nb, d.abs() - 1).to(torch.int32)      # [Wg, n]
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    if table_base is not None:
-        idx = idx + table_base
-    # Doubled table: the sign selects the negated half (row idx + n).
-    # Single table: the sign rides payload bit 30 for the scan to apply.
-    sbit = (1 << 30) if single else n
-    idxs = torch.where(d < 0, idx + sbit, idx)
+    wg, n = keys.shape
+    dev = keys.device
     keys_s, idxs_s = _sort_entries(keys, idxs)
 
     if nb % 128 == 0:
@@ -331,12 +351,9 @@ def _stage_table(coords: torch.Tensor) -> torch.Tensor:
     return build_prod_table(coords)
 
 
-def _stage_digits_only(scalars: torch.Tensor, cfg: MsmConfig) -> torch.Tensor:
-    return decompose_scalars_signed(scalars, cfg).T                   # [W, n]
-
-
-def _stage_group(table, digits_t, g: int, nb: int, wg: int) -> torch.Tensor:
-    return window_group_bucket_sums(table, digits_t[g * wg:(g + 1) * wg], nb)
+def _stage_group(table, keys, idxs, g: int, nb: int, wg: int, single: bool) -> torch.Tensor:
+    rows = slice(g * wg, (g + 1) * wg)
+    return entry_bucket_sums(table, keys[rows], idxs[rows], nb, single)
 
 
 def _stage_bpr(group_rows, w: int) -> torch.Tensor:
@@ -420,9 +437,10 @@ def msm_window_sums_batch(coords: torch.Tensor, scalars_list, cfg: MsmConfig,
     accs = [None] * len(scalars_list)
     for b0 in range(0, n, block):
         table = _stage_table(coords[b0:b0 + block])
+        single = single_table(table, block)
         for i, sc in enumerate(scalars_list):
-            digits_t = _stage_digits_only(sc[b0:b0 + block], cfg)
-            rows = _stage_bpr([_stage_group(table, digits_t, g, nb, window_group)
+            keys, idxs = signed_window_entries(sc[b0:b0 + block], cfg, sign_bit(single, block))
+            rows = _stage_bpr([_stage_group(table, keys, idxs, g, nb, window_group, single)
                                for g in range(w // window_group)], w)
             accs[i] = rows if accs[i] is None else _stage_combine(accs[i], rows)
         del table

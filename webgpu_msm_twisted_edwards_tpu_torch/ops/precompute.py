@@ -13,10 +13,13 @@ below the subgroup order need only 253 bits, W' = ceil(253 / c) windows.
 Precompute: _to_mont_rows (torch ops), then per window double_rows (kernel,
 c doublings) and normalize_rows (kernel, batch inversion) with the
 un-Montgomery and word repack in torch ops, then build_table (kernel) over
-the W'*n merged points.  Per MSM: the digits (torch ops), per entry block
-window_group_bucket_sums in block mode (sort, hist, gather, the signed scan,
+the W'*n merged points.  Per MSM: the entries (signed_window_entries, kernel:
+each digit's bucket key and signed merged row), per entry block the bucket
+sums of msm_pipeline.entry_bucket_sums (sort, hist, the signed table scan,
 carries, extraction), the blocks' buckets added with masked_add_rows, and
-bpr over the one window, whose sum is the total (no Horner fold).
+bpr over the one window, whose sum is the total (no Horner fold).  The
+digits and the digit block (_stage_merged_digits, _stage_merged_block) are
+the JAX package's stages, which the tests hold the port's to.
 """
 
 from __future__ import annotations
@@ -33,10 +36,16 @@ from . import field as F
 from .kernels.bpr import bpr
 from .kernels.common import LP, int_to_limbs, to_i32
 from .kernels.convert import build_table
+from .kernels.digits import signed_window_entries
 from .kernels.ec import TW, double_rows, masked_add_rows
 from .kernels.precompute import normalize_rows
 from .kernels.scan import K, TWR
-from .msm_pipeline import _STAGING_BYTES_PER_ENTRY, window_group_bucket_sums
+from .msm_pipeline import (
+    _STAGING_BYTES_PER_ENTRY,
+    entry_bucket_sums,
+    sign_bit,
+    window_group_bucket_sums,
+)
 
 #: Entry-block granularity: the bucket sums pad their entries to a multiple
 #: of 128 fragments of K.
@@ -112,6 +121,30 @@ def _stage_merged_block(table: torch.Tensor, digits: torch.Tensor, b: int, nb: i
     reads table row b*nblk + i."""
     d = digits[b * nblk:(b + 1) * nblk]
     return window_group_bucket_sums(table, d[None, :], nb, table_base=b * nblk)
+
+
+def _stage_merged_entries(scalars: torch.Tensor, cfg: MsmConfig,
+                          pad_to: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """[n, 8] scalars -> the entries of _stage_merged_digits' digits, keys
+    and signed rows, each [pad_to]: entry j*n + i reads merged row j*n + i;
+    the padding, zero digits, reads its own row."""
+    n = scalars.shape[0]
+    keys, idxs = signed_window_entries(scalars, cfg, sign_bit(True, n), row_stride=n)
+    keys, idxs = keys.reshape(-1), idxs.reshape(-1)
+    if pad_to != keys.shape[0]:
+        dev = keys.device
+        keys = torch.cat([keys, torch.full((pad_to - keys.shape[0],), cfg.num_buckets,
+                                           dtype=torch.int32, device=dev)])
+        idxs = torch.cat([idxs, torch.arange(idxs.shape[0], pad_to, dtype=torch.int32,
+                                             device=dev)])
+    return keys, idxs
+
+
+def _stage_merged_entry_block(table: torch.Tensor, keys: torch.Tensor, idxs: torch.Tensor,
+                              b: int, nb: int, nblk: int) -> torch.Tensor:
+    """_stage_merged_block on the entries of _stage_merged_entries."""
+    blk = slice(b * nblk, (b + 1) * nblk)
+    return entry_bucket_sums(table, keys[None, blk], idxs[None, blk], nb, single=True)
 
 
 def _stage_merged_accum(acc: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
@@ -190,9 +223,9 @@ def fixed_base_total_rows(pre: PrecomputedBase, scalars: torch.Tensor) -> torch.
     if scalars.shape[0] != pre.n:
         raise ValueError(f"{scalars.shape[0]} scalars for {pre.n} points")
     nb = pre.cfg.num_buckets
-    digits = _stage_merged_digits(scalars, pre.cfg, pre.nblk * pre.blocks)
+    keys, idxs = _stage_merged_entries(scalars, pre.cfg, pre.nblk * pre.blocks)
     acc = None
     for b in range(pre.blocks):
-        part = _stage_merged_block(pre.table, digits, b, nb, pre.nblk)
+        part = _stage_merged_entry_block(pre.table, keys, idxs, b, nb, pre.nblk)
         acc = part if acc is None else _stage_merged_accum(acc, part)
     return _stage_merged_total(acc)

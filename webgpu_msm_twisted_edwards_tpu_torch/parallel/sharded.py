@@ -37,9 +37,9 @@ from ..cpu.mirrors import horner
 from ..models import cuzk
 from ..ops import curve as C
 from ..ops import msm_pipeline as MP
-from ..ops.convert import decompose_scalars_signed
 from ..ops.kernels import _build
 from ..ops.kernels.bpr import bpr, horner_fold, reduce_rows_per_window
+from ..ops.kernels.digits import signed_window_entries
 from ..ops.kernels.ec import TW, masked_add_rows
 from ..ops.kernels.scan import K
 from ..utils.params import MsmConfig
@@ -122,7 +122,7 @@ def sharded_window_sums_staged(coords: torch.Tensor, scalars: torch.Tensor, mesh
     multiple of 64 a shard) -> the [W, TW] packed window sums of all n
     points on the mesh's first device, or with fold=True the [1, TW] packed
     projective total (the Horner fold, once).  Stage by stage across the
-    shards: every shard's table and digits, then each window group on every
+    shards: every shard's table and entries, then each window group on every
     shard, then every shard's BPR.  window_group=0 takes
     default_window_group of a shard on the first device (sized as if the
     shard had the card to itself)."""
@@ -135,14 +135,16 @@ def sharded_window_sums_staged(coords: torch.Tensor, scalars: torch.Tensor, mesh
         raise ValueError(f"window_group={window_group} does not divide {w} windows")
     shards = _shards(coords, scalars, mesh)
     tables = [MP.build_prod_table(c) for c, _ in shards]
-    digits = [decompose_scalars_signed(s, cfg).T for _, s in shards]         # [W, n_loc]
+    single = MP.single_table(tables[0], n_loc)
+    entries = [signed_window_entries(s, cfg, MP.sign_bit(single, n_loc)) for _, s in shards]
     del shards
     groups = [[] for _ in mesh]
     for g in range(w // window_group):
+        wins = slice(g * window_group, (g + 1) * window_group)
         for i in range(len(mesh)):
-            dg = digits[i][g * window_group:(g + 1) * window_group]
-            groups[i].append(MP.window_group_bucket_sums(tables[i], dg, nb))
-    del tables, digits
+            keys, idxs = entries[i]
+            groups[i].append(MP.entry_bucket_sums(tables[i], keys[wins], idxs[wins], nb, single))
+    del tables, entries
     rows = [bpr(torch.cat(gr) if len(gr) > 1 else gr[0], w) for gr in groups]
     return _gather_fold(rows, mesh, cfg, fold)
 
