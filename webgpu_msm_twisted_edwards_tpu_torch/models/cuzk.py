@@ -42,6 +42,7 @@ from ..utils.params import (
     tpu_msm_config,
 )
 from ..utils.runtime import resolve_device
+from ..utils.tracing import HOST_DECODE, WAIT_GUARD, WAIT_RESULT, span, wait
 
 
 def _as_u32_tensor(arr, device) -> torch.Tensor | None:
@@ -98,7 +99,8 @@ def reduce_scalars_mod_order(sc: torch.Tensor) -> torch.Tensor:
     """Reduce the scalars >= the subgroup order mod that order: for subgroup
     points k*P == (k mod r)*P, and the signed window decomposition would
     drop the final carry of a scalar >= about 2^255.  sc: [n, 8] int32 words;
-    one compare on its device, and only rows that need it go to the host."""
+    one compare on its device, a wait for it, and only rows that need it go
+    to the host."""
     order = torch.from_numpy(
         L.ints_to_u32_words([SUBGROUP_ORDER])[0].astype(np.int64)).to(sc.device)
     s = u32(sc)
@@ -107,7 +109,9 @@ def reduce_scalars_mod_order(sc: torch.Tensor) -> torch.Tensor:
     for i in range(sc.shape[1] - 1, -1, -1):
         gt = gt | (ge & (s[:, i] > order[i]))
         ge = ge & (s[:, i] == order[i])
-    bad = (gt | ge).nonzero().flatten()
+    flag = gt | ge
+    wait(WAIT_GUARD, sc.device)
+    bad = flag.nonzero().flatten()
     if bad.numel() == 0:
         return sc
     fixed = [v % SUBGROUP_ORDER for v in L.u32_words_to_ints(to_numpy_u32(sc[bad]))]
@@ -273,8 +277,12 @@ def _pad_batch(coords: torch.Tensor, scs: list[torch.Tensor]):
 
 
 def _affine_result(rows: torch.Tensor) -> dict[str, int]:
-    """[1, TW] packed projective total -> the affine {x, y}."""
-    x, y = packed_rows_to_extpoints(to_numpy_u32(rows))[0].to_affine()
+    """[1, TW] packed projective total -> the affine {x, y}: a wait for the
+    total, its copy to the host, then the host's decode."""
+    wait(WAIT_RESULT, rows.device)
+    words = to_numpy_u32(rows)
+    with span(HOST_DECODE):
+        x, y = packed_rows_to_extpoints(words)[0].to_affine()
     return {"x": x, "y": y}
 
 

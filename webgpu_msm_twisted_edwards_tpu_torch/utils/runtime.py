@@ -9,6 +9,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from .tracing import WAIT_MEMINFO, span
+
 #: Device memory assumed for a CPU run (the plain versions): sizes the window
 #: groups and point blocks the same way on every CUDA-less host.
 CPU_MEMORY_BYTES = 8 * (1 << 30)
@@ -29,11 +31,12 @@ def resolve_device(device=None) -> torch.device:
 
 def device_memory_bytes(device=None) -> int:
     """Total memory of `device` in bytes (torch.cuda.mem_get_info), or
-    CPU_MEMORY_BYTES for the CPU."""
+    CPU_MEMORY_BYTES for the CPU; inside the span WAIT_MEMINFO."""
     device = resolve_device(device)
-    if device.type == "cuda":
-        return int(torch.cuda.mem_get_info(device)[1])
-    return CPU_MEMORY_BYTES
+    with span(WAIT_MEMINFO):
+        if device.type == "cuda":
+            return int(torch.cuda.mem_get_info(device)[1])
+        return CPU_MEMORY_BYTES
 
 
 def card_info() -> str:
